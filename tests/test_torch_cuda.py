@@ -1,0 +1,166 @@
+"""The port's CUDA kernels B1-B6 against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU: without one each skips (the decision is
+made in the `dev` fixture, not at import).  The machine with the card has no
+JAX, so run them without the JAX test configuration:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Inputs are made from seeds with numpy; the kernel runs on the card and its
+plain version on the same inputs on the CPU.  Tolerance 0: the arithmetic
+is exact and both keep canonical limbs.
+"""
+
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from tinyram_tpu_torch import kernels
+from tinyram_tpu_torch.curve import cuda_point as cp
+from tinyram_tpu_torch.curve import host
+from tinyram_tpu_torch.curve.msm import msm, msm_many
+from tinyram_tpu_torch.curve.vesta import PointBatch, from_affine_host, to_affine_host
+from tinyram_tpu_torch.field import FP, FQ
+from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
+from tinyram_tpu_torch.ipa.srs import _hash_to_curve
+from tinyram_tpu_torch.poly import cuda_ntt
+from tinyram_tpu_torch.poly.ntt import ntt
+
+torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    kernels.library()  # builds on first use; a failed build fails here
+    return torch.device("cuda", 0)
+
+
+def _limbs(shape, seed):
+    """Canonical field elements (< 2^254) as (16, *shape) int32 on the CPU."""
+    limbs = np.random.default_rng(seed).integers(
+        0, 1 << 16, size=(16,) + tuple(shape), dtype=np.int64)
+    limbs[15] &= 0x3FFF
+    return torch.as_tensor(limbs.astype(np.int32))
+
+
+def _gpu_equals_cpu(got, want):
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("field", [FP, FQ], ids=["Fp", "Fq"])
+def test_b1_mont_mul(dev, field):
+    p = field.modulus
+    edge = field.encode([0, 1, p - 1, p - 2, 2], to_mont=False)
+    a = torch.cat([edge, _limbs((4099,), 1)], dim=1)
+    b = torch.cat([edge.flip(1), _limbs((4099,), 2)], dim=1)
+    before = mont_mul.launches
+    _gpu_equals_cpu(mont_mul(a.to(dev), b.to(dev), field.params),
+                    mont_mul_plain(a, b, field.params))
+    assert mont_mul.launches == before + 1
+
+
+@pytest.mark.parametrize("log_n", [9, 10, 11, 14])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b2_ntt(dev, log_n, inverse):
+    x = _limbs((3, 1 << log_n), log_n)
+    before = cuda_ntt.colntt.launches
+    _gpu_equals_cpu(ntt(FP, x.to(dev), inverse), ntt(FP, x, inverse))
+    assert cuda_ntt.colntt.launches > before
+
+
+def test_b2_rows_with_multipliers(dev):
+    x, mult, scale = _limbs((6, 256), 3), _limbs((3, 256), 4), _limbs((), 5)
+    _gpu_equals_cpu(
+        cuda_ntt.colntt(x.to(dev), FP, False, mult.to(dev), scale.to(dev)),
+        cuda_ntt.colntt(x, FP, False, mult, scale))
+
+
+@pytest.fixture(scope="module")
+def points():
+    """A projective batch with identity lanes, a second one, and a mask."""
+    pool = [_hash_to_curve(b"torch-cuda-test", i) for i in range(64)]
+    rng = np.random.default_rng(6)
+    n = 1000
+
+    def batch(seed):
+        pts = [None if i % 9 == 4 else pool[int(j)]
+               for i, j in enumerate(np.random.default_rng(seed).integers(0, 64, n))]
+        aff = from_affine_host(pts)
+        z = FQ.encode([int(v) | 1 for v in rng.integers(1, 1 << 62, n)])
+        ident = FQ.is_zero(aff.z)
+        return PointBatch(FQ.mul(aff.x, z), FQ.select(ident, aff.y, FQ.mul(aff.y, z)),
+                          FQ.mul(aff.z, z))
+
+    qa = from_affine_host([pool[i % 64] for i in range(n)])
+    return batch(7), batch(8), qa, torch.as_tensor(rng.random(n) < 0.5)
+
+
+def _on(p, dev):
+    return PointBatch(*(c.to(dev) for c in p))
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_b3_to_b6_points(dev, points):
+    p, q, qa, mask = points
+    dp, dq, dm = _on(p, dev), _on(q, dev), mask.to(dev)
+    _equal(cp.padd_select_mixed(dm, dp, qa.x.to(dev), qa.y.to(dev)),
+           cp.madd_select_plain(mask, p, qa.x, qa.y))
+    _equal(cp.padd(dp, dq), cp.padd_plain(p, q))
+    _equal(cp.padd_select(dm, dp, dq), cp.padd_select_plain(mask, p, q))
+    _equal(cp.pdouble(dp), cp.pdouble_plain(p))
+
+
+@pytest.mark.parametrize("n", [100, (1 << 15) + 40])
+def test_msm_on_card_matches_host(dev, n):
+    """Both MSM paths on the card: bit-serial (B6, B5) and Pippenger (B3-B6)."""
+    pool = [_hash_to_curve(b"torch-cuda-msm", i) for i in range(8)]
+    rng = np.random.default_rng(n)
+    idx = rng.integers(-1, 8, n)
+    pts = [None if j < 0 else pool[int(j)] for j in idx]
+    sc = [int(v) for v in rng.integers(0, 1 << 62, n)]
+    sums = {}
+    for s, j in zip(sc, idx):
+        if j >= 0:
+            sums[int(j)] = (sums.get(int(j), 0) + s) % FP.modulus
+    want = None
+    for j, s in sums.items():
+        want = host.add(want, host.scalar_mul(s, pool[j]))
+    got = msm(FP.encode(sc, to_mont=False, device=dev), from_affine_host(pts, dev))
+    assert to_affine_host(PointBatch(*(c[:, None] for c in got)))[0] == want
+    if n < 1000:
+        stack = FP.encode(sc, to_mont=False, device=dev)[:, None].expand(16, 3, n)
+        assert to_affine_host(msm_many(stack.contiguous(),
+                                       from_affine_host(pts, dev))) == [want] * 3
+
+
+def test_w8_proof_on_card_equals_jax_bytes(dev):
+    """gen_proof_and_verify on the card (setup, keygen, prove, verify) for
+    the Answer-only W=8 program: the proof is the JAX package's recorded
+    proof (tests/data/torch_golden_w8.npz) byte for byte, and verifies."""
+    from tinyram_tpu_torch.tinyram import Imm, Instruction, gen_proof_and_verify
+
+    class SeededRng:
+        def __init__(self, seed):
+            self._r = random.Random(seed)
+
+        def randbelow(self, n):
+            return self._r.randrange(n)
+
+    rec = np.load(os.path.join(os.path.dirname(__file__), "data",
+                               "torch_golden_w8.npz"))
+    prog = [Instruction("Answer", None, None, Imm(0))]
+    _, proof, ok = gen_proof_and_verify(8, 8, prog, device=dev,
+                                        rng=SeededRng(1))
+    assert ok
+    assert proof == rec["proof_answer"].tobytes()

@@ -1,0 +1,403 @@
+"""Pippenger multi-scalar multiplication (PyTorch; kernels B3-B6).
+
+Port of `tinyram_tpu/curve/msm.py`, same algorithm:
+
+  1. signed c-bit digits straight from the 16-bit limbs (bucket = |d|, the
+     point is negated when d < 0);
+  2. points digit-sorted per window, then bucket sums by a chunked
+     segmented scan: the sorted lane axis is cut into chunks of length L and
+     a loop of L steps of kernel B3 (mixed add-select) computes within-chunk
+     segmented inclusive sums at full lane width;
+  3. a log-width carry fixup (kernel B5) stitches segments that span chunk
+     boundaries, and kernel B4 adds each chunk's incoming carry;
+  4. segment-end rows land in their buckets (exactly one row per bucket);
+  5. the bucket-weighted reduction Σ d·B_d splits d = hi·S + lo: a serial
+     suffix scan over lo (B4, B5), log-depth combines over hi (B4, B6);
+  6. Horner over the windows with c doublings per step (B6, B4).
+
+Up to 2^15 lanes a bit-serial double-and-add (B6, B5 per bit) replaces it.
+The reference's `lax.scan` and `fori_loop` bodies are Python loops of
+kernel launches here.  The reference's environment knobs are keyword
+arguments with the same defaults (`window_bits`, `group_log2`,
+`lanes_log2`); its opt-in batched-affine scan is not ported.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from ..field.field import FQ
+from ..field.params import N_LIMBS
+from . import vesta
+from .cuda_point import padd, padd_select, padd_select_mixed, pdouble
+from .vesta import PointBatch
+
+SCALAR_BITS = 16 * N_LIMBS  # 256
+GROUP_LOG2 = 22  # peak elements per window group (reference default)
+LANES_LOG2 = 15  # total lanes per scan step (reference default)
+SMALL_MSM_LANES = 1 << 15  # bit-serial path up to this many lanes
+
+
+def choose_window_bits(n: int) -> int:
+    """Minimize W(c)·(n + 0.4·2^(c-1)) (the reference's cost model)."""
+    best_c, best_cost = 8, None
+    c_max = min(17, max(8, n.bit_length() - 2))
+    for c in range(6, c_max + 1):
+        w = -(-SCALAR_BITS // c)
+        cost = w * (n + 0.4 * (1 << (c - 1)))
+        if best_cost is None or cost < best_cost:
+            best_c, best_cost = c, cost
+    return best_c
+
+
+def scalar_digits(scalars_plain: torch.Tensor, c: int) -> torch.Tensor:
+    """(16, ...) plain (non-Montgomery) scalar limbs -> (W, ...) int64
+    digits; window w covers scalar bits [w·c, w·c + c)."""
+    n_windows = -(-SCALAR_BITS // c)
+    mask = (1 << c) - 1
+    s64 = scalars_plain.to(torch.int64)
+    outs = []
+    for w in range(n_windows):
+        lo_bit = w * c
+        i0, s = divmod(lo_bit, 16)
+        if i0 >= N_LIMBS:
+            outs.append(torch.zeros_like(s64[0]))
+            continue
+        d = s64[i0] >> s
+        if s + c > 16 and i0 + 1 < N_LIMBS:
+            d = d | (s64[i0 + 1] << (16 - s))
+        if s + c > 32 and i0 + 2 < N_LIMBS:
+            d = d | (s64[i0 + 2] << (32 - s))
+        outs.append(d & mask)
+    return torch.stack(outs)
+
+
+def signed_digits(scalars_plain: torch.Tensor, c: int):
+    """(16, ...) plain scalars -> (|d|, sign) with d in [-2^(c-1), 2^(c-1)].
+
+    d'_w = d_w + carry; above 2^(c-1) subtract 2^c and carry 1 into window
+    w+1.  The top window never overflows: scalars are < p < 2^255.
+    """
+    d = scalar_digits(scalars_plain, c)
+    half = 1 << (c - 1)
+    full = 1 << c
+    carry = torch.zeros_like(d[0])
+    out = torch.empty_like(d)
+    for w in range(d.shape[0]):
+        dw = d[w] + carry
+        hi = dw > half
+        out[w] = torch.where(hi, dw - full, dw)
+        carry = hi.to(d.dtype)
+    return out.abs(), out < 0
+
+
+@lru_cache(maxsize=None)
+def plan(n: int, n_windows: int, group_log2: int = GROUP_LOG2,
+         lanes_log2: int = LANES_LOG2):
+    """(group size G, lanes per window, chunk length L, padded N)."""
+    group_elems, target_lanes = 1 << group_log2, 1 << lanes_log2
+    g = max(1, min(n_windows, group_elems // max(n, 1)))
+    k_per_window = max(1, target_lanes // g)
+    cap = min(k_per_window, max(1, n // 8))
+    if cap >= 128:
+        lanes = (cap // 128) * 128
+    else:
+        lanes = 1
+        while lanes * 2 <= cap:
+            lanes *= 2
+    n_pad = -(-n // lanes) * lanes
+    L = n_pad // lanes
+    return g, lanes, L, n_pad
+
+
+def _shift_lanes(p: PointBatch, d: int, fill: PointBatch) -> PointBatch:
+    """Lane k takes lane k-d (the first d lanes take `fill`)."""
+    return PointBatch(*(
+        torch.cat([f[..., :d], c[..., :-d]], dim=-1) for c, f in zip(p, fill)
+    ))
+
+
+def _group_bucket_sums(
+    digits_g: torch.Tensor,  # (G, N) bucket ids (|d| for signed)
+    signs_g: torch.Tensor,  # (G, N) bool: negate the point in this window
+    points: PointBatch,  # batch (N,)
+    lanes_per_window: int,
+    L: int,
+    n_buckets: int,
+) -> PointBatch:
+    """Bucket sums for G digit vectors at once -> batch (G, n_buckets + 1).
+
+    Slot n_buckets is the spill bucket (identity inputs and padding); it
+    is left as the identity.
+    """
+    dev = digits_g.device
+    spill = n_buckets
+    G, n = digits_g.shape
+    n_pad = lanes_per_window * L
+    # identity inputs contribute nothing: route them to the spill bucket so
+    # the mixed-add scan never sees a non-finite q (RCB16 Alg. 8)
+    ident_in = FQ.is_zero(points.z)
+    digits_g = torch.where(ident_in[None, :], spill, digits_g)
+    px_all, py_all = points.x, points.y
+    if n_pad != n:
+        digits_g = torch.cat(
+            [digits_g, torch.full((G, n_pad - n), spill, dtype=digits_g.dtype,
+                                  device=dev)], dim=1)
+        signs_g = torch.cat(
+            [signs_g, torch.zeros((G, n_pad - n), dtype=torch.bool,
+                                  device=dev)], dim=1)
+        zero = FQ.zeros((n_pad - n,), dev)
+        px_all = torch.cat([px_all, zero], dim=-1)
+        py_all = torch.cat([py_all, zero], dim=-1)
+
+    order = torch.argsort(digits_g, dim=-1, stable=True)  # (G, n_pad)
+    d_sorted = torch.gather(digits_g, 1, order)
+    s_sorted = torch.gather(signs_g, 1, order)
+    flat_order = order.reshape(-1)
+    px = px_all[:, flat_order].reshape(N_LIMBS, G, n_pad)
+    py = py_all[:, flat_order].reshape(N_LIMBS, G, n_pad)
+    py = torch.where(s_sorted[None], FQ.neg(py), py)
+
+    # global segment ends (computed before chunking)
+    ends = torch.cat(
+        [d_sorted[:, 1:] != d_sorted[:, :-1],
+         torch.ones((G, 1), dtype=torch.bool, device=dev)], dim=-1)
+
+    M = G * lanes_per_window  # total chunk lanes
+    d_chunk = d_sorted.reshape(M, L)
+    # scan inputs, step axis first: (L, 16, M)
+    sx = px.reshape(N_LIMBS, M, L).permute(2, 0, 1).contiguous()
+    sy = py.reshape(N_LIMBS, M, L).permute(2, 0, 1).contiguous()
+    same = torch.cat(
+        [torch.zeros((M, 1), dtype=torch.bool, device=dev),
+         d_chunk[:, 1:] == d_chunk[:, :-1]], dim=-1,
+    ).T.contiguous()  # (L, M)
+
+    ys = [torch.empty((L, N_LIMBS, M), dtype=torch.int32, device=dev)
+          for _ in range(3)]
+    acc = vesta.identity((M,), dev)
+    for step in range(L):
+        acc = padd_select_mixed(same[step], acc, sx[step], sy[step])
+        for coord, val in zip(ys, acc):
+            coord[step] = val
+    del sx, sy
+
+    # ---- cross-chunk carry fixup (log-width over the chunk-lane axis)
+    d_first = d_chunk[:, 0]
+    d_last = d_chunk[:, -1]
+    trailing = PointBatch(*(coord[-1] for coord in ys))  # (16, M)
+    window_start = (
+        torch.arange(M, device=dev) % lanes_per_window
+    ) == 0
+    prev = torch.cat([d_last[:1], d_last[:-1]])  # d_last[k-1]
+    connects = (d_first == prev) & ~window_start
+    allsame_prev = torch.cat(
+        [torch.zeros((1,), dtype=torch.bool, device=dev),
+         (d_first == d_last)[:-1]])
+    ident1 = vesta.identity((M,), dev)
+    C = vesta.select(connects, _shift_lanes(trailing, 1, ident1), ident1)
+    A = connects & allsame_prev  # propagate flag
+    dshift = 1
+    while dshift < lanes_per_window:
+        Cs = _shift_lanes(C, dshift, ident1)
+        As = torch.cat(
+            [torch.zeros((dshift,), dtype=torch.bool, device=dev), A[:-dshift]])
+        C = padd_select(A, Cs, C)
+        A = A & As
+        dshift *= 2
+    # C[k] = carry into chunk k; it applies at the end of the chunk's first
+    # segment (position e = count of leading d_first digits - 1)
+    e = (d_chunk == d_first[:, None]).sum(dim=-1) - 1  # (M,)
+    lane = torch.arange(M, device=dev)
+    at_e = PointBatch(*(coord[e, :, lane].T for coord in ys))  # (16, M)
+    fixed = padd(at_e, C)
+    for coord, val in zip(ys, fixed):
+        coord[e, :, lane] = val.T
+
+    # ---- segment ends into buckets (one contributing row per bucket)
+    ids = d_sorted + (
+        torch.arange(G, device=dev, dtype=d_sorted.dtype) * (n_buckets + 1)
+    )[:, None]
+    sel_ids = ids[ends]
+    out = []
+    for coord in ys:
+        flat = coord.permute(1, 2, 0).reshape(N_LIMBS, G * n_pad)
+        b = torch.zeros((N_LIMBS, G * (n_buckets + 1)), dtype=torch.int32,
+                        device=dev)
+        b[:, sel_ids] = flat[:, ends.reshape(-1)]
+        out.append(b.reshape(N_LIMBS, G, n_buckets + 1))
+    bx, by, bz = out
+    empty = (bx == 0).all(0) & (by == 0).all(0) & (bz == 0).all(0)
+    by = torch.where(empty[None], FQ.ones((G, n_buckets + 1), dev), by)
+    return PointBatch(bx, by, bz)
+
+
+def _tree_reduce_last(x: PointBatch) -> PointBatch:
+    dev = x.x.device
+    while x.x.shape[-1] > 1:
+        n = x.x.shape[-1]
+        if n % 2:
+            ident = vesta.identity(x.x.shape[1:-1] + (1,), dev)
+            x = PointBatch(*(torch.cat([c, i], dim=-1) for c, i in zip(x, ident)))
+            n += 1
+        h = n // 2
+        x = padd(PointBatch(*(c[..., :h] for c in x)),
+                 PointBatch(*(c[..., h:] for c in x)))
+    return PointBatch(*(c[..., 0] for c in x))
+
+
+def _suffix_weighted(T: PointBatch) -> PointBatch:
+    """Σ_hi hi·T[..., hi] via log-depth suffix sums then a tree sum."""
+    H = T.x.shape[-1]
+    ident = vesta.identity(T.x.shape[1:], T.x.device)
+    d = 1
+    x = T
+    while d < H:
+        shifted = PointBatch(*(
+            torch.cat([c[..., d:], i[..., :d]], dim=-1) for c, i in zip(x, ident)
+        ))
+        x = padd(x, shifted)
+        d *= 2
+    # x[..., j] = Σ_{hi≥j} T; Σ_{j≥1} x_j = Σ hi·T_hi
+    return _tree_reduce_last(PointBatch(*(c[..., 1:] for c in x)))
+
+
+def _weighted_bucket_reduce_inner(buckets: PointBatch, c: int) -> PointBatch:
+    """Σ_{d=1}^{2^c - 1} d · B_d for all windows at once -> batch (W,)."""
+    dev = buckets.x.device
+    nw = buckets.x.shape[1]
+    n_buckets = 1 << c
+    s_lo = c // 2
+    S = 1 << s_lo
+    H = n_buckets // S
+    shape = (N_LIMBS, nw, H, S)
+    b = [coord[..., :n_buckets].reshape(shape) for coord in buckets]
+    # serial suffix scan over lo: acc_j = Σ_{lo≥j} B;  U += acc_j for j≥1
+    acc = vesta.identity((nw, H), dev)
+    tot = vesta.identity((nw, H), dev)
+    take = torch.ones((nw, H), dtype=torch.bool, device=dev)
+    for j in range(S - 1, -1, -1):
+        acc = padd(acc, PointBatch(*(coord[..., j] for coord in b)))
+        if j >= 1:  # the reference's select(j >= 1, acc + tot, tot)
+            tot = padd_select(take, acc, tot)
+    X = _suffix_weighted(acc)
+    Y = _tree_reduce_last(tot)
+    for _ in range(s_lo):
+        X = pdouble(X)
+    return padd(X, Y)
+
+
+def _weighted_bucket_reduce_signed(buckets: PointBatch, c: int) -> PointBatch:
+    """Σ_{d=1}^{2^(c-1)} d · B_d for signed-digit buckets (batch (W,))."""
+    half_bits = c - 1
+    half = 1 << half_bits
+    main = _weighted_bucket_reduce_inner(buckets, half_bits)
+    top = PointBatch(*(coord[..., half] for coord in buckets))
+    for _ in range(half_bits):
+        top = pdouble(top)
+    return padd(main, top)
+
+
+def _combine_windows(window_sums: PointBatch, c: int) -> PointBatch:
+    """Horner: Σ_w 2^{cw} S_w over batch (W, *rest) -> (*rest)."""
+    nw = window_sums.x.shape[1]
+    acc = vesta.identity(window_sums.x.shape[2:], window_sums.x.device)
+    for i in range(nw):
+        w = nw - 1 - i
+        for _ in range(c):
+            acc = pdouble(acc)
+        acc = padd(acc, PointBatch(*(coord[:, w] for coord in window_sums)))
+    return acc
+
+
+def _bucket_sums_all(digits, signs, points: PointBatch, c: int,
+                     group_log2: int, lanes_log2: int) -> PointBatch:
+    """(W_total, N) bucket ids + signs -> batch (W_total, 2^(c-1) + 2)."""
+    w_total, n = digits.shape
+    n_buckets = (1 << (c - 1)) + 1  # ids 0..2^(c-1); spill index = n_buckets
+    G, lanes, L, _ = plan(n, w_total, group_log2, lanes_log2)
+    n_groups = -(-w_total // G)
+    if n_groups * G != w_total:  # pad with zero digit vectors
+        pad = n_groups * G - w_total
+        digits = torch.cat([digits, torch.zeros((pad, n), dtype=digits.dtype,
+                                                device=digits.device)])
+        signs = torch.cat([signs, torch.zeros((pad, n), dtype=torch.bool,
+                                              device=signs.device)])
+    parts = [
+        _group_bucket_sums(digits[g * G:(g + 1) * G], signs[g * G:(g + 1) * G],
+                           points, lanes, L, n_buckets)
+        for g in range(n_groups)
+    ]
+    return PointBatch(*(
+        torch.cat([p[i] for p in parts], dim=1)[:, :w_total] for i in range(3)
+    ))
+
+
+def _bits_msb_first(scalars_plain: torch.Tensor) -> torch.Tensor:
+    """(16, ...) plain limbs -> (256, ...) bool bits, MSB first."""
+    rows = []
+    for limb in range(N_LIMBS - 1, -1, -1):
+        for b in range(15, -1, -1):
+            rows.append((scalars_plain[limb] >> b) & 1)
+    return torch.stack(rows).to(torch.bool)
+
+
+def _msm_small(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
+    """Σ s_i·P_i per lane by double-and-add, then a tree reduce over the
+    last axis; scalars (16, *batch, N), points broadcast to that batch."""
+    bshape = tuple(scalars_plain.shape[1:])
+    lead = (N_LIMBS,) + (1,) * (len(bshape) - 1) + bshape[-1:]
+    pts = PointBatch(*(c.reshape(lead).expand((N_LIMBS,) + bshape).contiguous()
+                       for c in points))
+    acc = vesta.identity(bshape, scalars_plain.device)
+    for bit in _bits_msb_first(scalars_plain):
+        acc = pdouble(acc)
+        acc = padd_select(bit, pts, acc)
+    return _tree_reduce_last(acc)
+
+
+def _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2):
+    """(16, B, N) scalars -> batch (B,) via the bucket pipeline."""
+    _, B, n = scalars_plain.shape
+    n_windows = -(-SCALAR_BITS // c)
+    digits, signs = signed_digits(scalars_plain, c)  # (W, B, N)
+    digits_flat = digits.transpose(0, 1).reshape(B * n_windows, n)
+    signs_flat = signs.transpose(0, 1).reshape(B * n_windows, n)
+    buckets = _bucket_sums_all(digits_flat, signs_flat, points, c,
+                               group_log2, lanes_log2)
+    wsums = _weighted_bucket_reduce_signed(buckets, c)  # batch (B·W,)
+    per_col = PointBatch(*(
+        coord.reshape(N_LIMBS, B, n_windows).transpose(1, 2) for coord in wsums
+    ))  # batch (W, B)
+    return _combine_windows(per_col, c)
+
+
+def msm(scalars_plain: torch.Tensor, points: PointBatch,
+        window_bits: int | None = None, group_log2: int = GROUP_LOG2,
+        lanes_log2: int = LANES_LOG2) -> PointBatch:
+    """Σ s_i·P_i for (16, N) plain-form scalars; returns batch ().
+
+    Points must be affine-or-identity (z per lane 0 or Montgomery one):
+    the Pippenger path (N > 2^15) lifts them as (x, y, 1).
+    """
+    n = scalars_plain.shape[-1]
+    if n <= SMALL_MSM_LANES:
+        return _msm_small(scalars_plain, points)
+    c = window_bits or choose_window_bits(n)
+    out = _msm_pippenger(scalars_plain[:, None], points, c, group_log2,
+                         lanes_log2)
+    return PointBatch(*(coord[:, 0] for coord in out))
+
+
+def msm_many(scalars_plain: torch.Tensor, points: PointBatch,
+             window_bits: int | None = None, group_log2: int = GROUP_LOG2,
+             lanes_log2: int = LANES_LOG2) -> PointBatch:
+    """MSM of B scalar vectors (16, B, N) against one point set; returns
+    batch (B,).  Points must be affine-or-identity, as for `msm`."""
+    _, B, n = scalars_plain.shape
+    if B * n <= SMALL_MSM_LANES:
+        return _msm_small(scalars_plain, points)
+    c = window_bits or choose_window_bits(n)
+    return _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2)
