@@ -3,18 +3,42 @@
 
 Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
 
-1. Prints the card's name and power limit and builds the CUDA kernels.
-2. Runs each kernel B1-B6 on the card at the main path's shapes and holds
+1. Prints the card's name and power limit, builds the CUDA kernels and
+   reads their SASS (`cuobjdump -sass`) for the instruction counts of the
+   compute bounds: each kernel's integer instructions by pipe (IMAD-class
+   without register moves; IADD3/LOP3/SHF/LEA) over the card's published
+   64-lane integer rate, against its bytes over 3.35 TB/s.  Kernel times
+   are CUDA-graph replays (no host gap between launches); the plain
+   versions are timed as Python issues them.
+2. Probes: drives the op-rate probe path (`probes.measure`, what
+   `python -m tinyram_tpu_torch.probes` runs) with the launch counts reset
+   just before it, then holds P1 and P2, every op at the JAX scripts'
+   shapes, against their plain versions on the card (u32 ops and f32mul
+   exact; f32fma rtol 1e-5 with equal infinities), with G ops/s and the
+   SASS instructions of the op per chain step.
+3. Runs each kernel B1-B6 on the card at the main path's shapes and holds
    it against its plain PyTorch version on the same inputs: the outputs
    must be equal limb for limb (tolerance 0: the arithmetic is exact).
-3. Drives the main path: BASELINE config 2 (the arithmetic/bitwise loop of
+4. Drives the main path: BASELINE config 2 (the arithmetic/bitwise loop of
    ~2^12 steps at W=24, 8 registers, k=14) through TinyRamCircuit: SRS
    setup, keygen, witness, create_proof, verify; the proof must verify and
-   must be rejected for answer + 1.  Every kernel's launch count is reset
-   just before the proof and must be > 0 after it.
-4. Proves the W=8 Answer-only program on the card under the seeded random
-   stream of tests/data/torch_golden_w8.npz and checks that the proof bytes
-   equal the JAX package's recorded proof.
+   must be rejected for answer + 1.  The launch counts are reset just
+   before the proof and each of B1-B6 must be > 0 after it.
+5. The mock prover on config 2 at full width on the card: the clean trace
+   gives no failure, one forged advice cell (tv_c on an And row) gives a
+   failure named after the "and" gate; B1 launches > 0 during the mock.
+6. The 13 negative proofs at W=8 (payloads of tests/test_proof_negative.py,
+   copied: that file imports JAX): for each family the mock names the
+   family and the real proof made on the card is rejected; the clean proof
+   is accepted.  One SRS and one pk serve all of them.
+7. W=16 (k=10): one proof verifies and answer + 1 is rejected.
+8. The batch verifier: the config-2 proof queued twice is accepted; with
+   the answer + 1 inputs beside it, rejected, per proof [True, False].
+9. The key file: the config-2 pk saved with `save_pk` to chiprun_out/ and
+   loaded with `load_pk` proves the same bytes under the seeded stream.
+10. Proves the W=8 Answer-only program on the card under the seeded random
+    stream of tests/data/torch_golden_w8.npz and checks that the proof
+    bytes equal the JAX package's recorded proof.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line,
 and as its last line {"ok": true, "device": {...}}.  Any failure raises
@@ -27,14 +51,14 @@ from __future__ import annotations
 import json
 import os
 import random
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out")
 SEED = 0  # inputs of the kernel checks and the proof's random stream
 
-REPLACES = {
+KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "B1": ("mont_mul", "tinyram_tpu_torch/csrc/mont_mul.cu",
            "tinyram_tpu/field/pallas_mul.py:134"),
     "B2": ("ntt_rows", "tinyram_tpu_torch/csrc/ntt.cu",
@@ -47,7 +71,28 @@ REPLACES = {
            "tinyram_tpu/curve/pallas_point.py:274"),
     "B6": ("pdouble", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:324"),
+    "P1": ("vpu_chain", "tinyram_tpu_torch/csrc/vpu_probe.cu",
+           "scripts/bench_vpu.py:45"),
+    "P2": ("vpu_ops", "tinyram_tpu_torch/csrc/vpu_probe.cu",
+           "scripts/bench_vpu_ops.py:51"),
 }
+PROOF_KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6")
+# the probe case each of P1, P2 reports in the kernels line
+PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
+# SASS function of each kernel (a part of its mangled name)
+SASS_NAME = {"B1": "15mont_mul_kernelILi0E", "B3": "18madd_select_kernel",
+             "B4": "11padd_kernel", "B5": "18padd_select_kernel",
+             "B6": "14pdouble_kernel"}
+
+HBM_BYTES_PER_S = 3.35e12  # published H100 SXM memory rate (700 W part)
+F32_PER_S = 67e12 / 2  # published float32 rate, 67 TFLOP/s, as FMUL/FFMA per s
+INT32_PER_S = F32_PER_S / 2  # 64 integer lanes per SM against 128 float32
+FE_BYTES = 64  # one field element: 16 limbs in int32
+MOCK_FORGE = ("and", "tv_c")
+# the SASS opcode of each probe op's chain step
+CHAIN_OPCODE = {"add": "IADD3", "u32add": "IADD3", "mul": "IMAD",
+                "u32mul": "IMAD", "mulmask": "IMAD", "u32shift": "SHF.R.U32.HI",
+                "f32mul": "FMUL", "f32fma": "FFMA"}  # gate family and the advice column forged
 
 
 class SeededRng:
@@ -61,32 +106,180 @@ class SeededRng:
         return self._r.randrange(n)
 
 
+# (family, [(column, row_offset_from_pad_row, value), ...]): each payload
+# trips a failure whose gate name starts with the family name.  A copy of
+# tests/test_proof_negative.py's FAMILY_PAYLOADS.
+FAMILY_PAYLOADS = [
+    ("and", [("tv_c", 0, 7)]),
+    ("xor", [("tv_c", 0, 7)]),
+    ("or", [("tv_c", 0, 7)]),
+    ("sum", [("tv_a", 0, 5)]),
+    ("ssum", [("tv_a", 0, 5)]),
+    ("prod", [("tv_c", 0, 7)]),
+    ("sprod", [("tv_c", 0, 7)]),
+    ("mod", [("tv_a", 0, 5)]),
+    ("shift", [("tv_a", 0, 5)]),
+    ("flag1", [("tv_c", 0, 7), ("flag", 1, 1)]),
+    ("flag2", [("tv_a", 0, 5)]),
+    ("flag3", [("tv_a", 0, 5)]),
+    ("flag4", [("flag", 1, 1)]),
+]
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps runs, after one warm-up."""
+def sync() -> None:
     import torch
 
-    fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
-def max_abs_err(a, b) -> int:
+def naming(failures, family: str) -> list:
+    """The failures whose gate name starts with `family`."""
+    return [f for f in failures
+            if f.name.split("#")[0].split(".")[0].startswith(family)]
+
+
+def forged_assignment(circ, tr, family, payload, dev):
+    """tests/test_proof_negative.py's `_forged_assignment` on `dev`:
+    activate `out.<family>` on the first padding row, apply the payload."""
+    import numpy as np
+
+    from tinyram_tpu_torch.field import FP
+
+    row = len(tr) + 1
+    asg = circ.assignment(tr, dev)
+    for name, off, value in [(f"out.{family}", 0, 1)] + payload:
+        col = circ.tcs.col.advice[name]
+        vals = FP.decode(asg.get(col))
+        vals[row + off] = value
+        asg.set(col, np.array(vals, dtype=object))
+    return asg
+
+
+# ----------------------------------------------------------------- bounds
+
+
+def imad_count(opcodes) -> int:
+    """IMAD-class arithmetic (IMAD, .WIDE, .HI, .X) in a Counter of SASS
+    opcodes: the work of the integer multiply pipe.  IMAD.MOV, a register
+    move the compiler puts on that pipe, is not work the function needs and
+    is left out."""
+    return sum(v for k, v in opcodes.items()
+               if k.startswith("IMAD") and not k.startswith("IMAD.MOV"))
+
+
+def alu_count(opcodes) -> int:
+    """IADD3/LOP3/SHF/LEA in a Counter of SASS opcodes (the carries, masks
+    and shifts of limb arithmetic): the work of the 64-lane integer pipe."""
+    return sum(v for k, v in opcodes.items()
+               if k.split(".")[0] in ("IADD3", "LOP3", "SHF", "LEA"))
+
+
+def pipe_ms(opcodes, elements: int) -> float:
+    """Least time of `elements` threads each issuing the instructions of
+    `opcodes`, by pipe at the card's published rates: IMAD-class (moves
+    left out) on the 64-lane integer multiply pipe, IADD3/LOP3/SHF/LEA on
+    the 64-lane integer pipe, FMUL/FFMA/FADD at the 128-lane float32
+    rate."""
+    imad = imad_count(opcodes)
+    alu = alu_count(opcodes)
+    fp = sum(v for k, v in opcodes.items()
+             if k.split(".")[0] in ("FMUL", "FFMA", "FADD"))
+    return max(imad / INT32_PER_S, alu / INT32_PER_S,
+               fp / F32_PER_S) * elements * 1e3
+
+
+def bound(nbytes: float, ops_ms: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def sass_of(funcs: dict, part: str):
+    hits = [c for name, c in funcs.items() if part in name]
+    if len(hits) != 1:
+        raise AssertionError(f"SASS: {len(hits)} kernels match {part!r}")
+    return hits[0]
+
+
+# ----------------------------------------------------------------- phases
+
+
+def probe_phase(dev, report, funcs) -> dict:
+    """P1 and P2: the probe path with counts, then each case against its
+    plain version on the card."""
     import torch
 
-    if isinstance(a, tuple):
-        return max(max_abs_err(x, y) for x, y in zip(a, b))
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+    from tinyram_tpu_torch import kernels, probes
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    rates = probes.measure(dev)
+    t_measure = time.time() - t0
+    launches = kernels.launch_counts()
+    log(f"[probe] probe path {t_measure:.2f}s, launches "
+        f"P1={launches['P1']} P2={launches['P2']}")
+    for kid in ("P1", "P2"):
+        if launches[kid] == 0:
+            raise AssertionError(f"{kid} never launched by the probe path")
+
+    out = {"launches": {k: launches[k] for k in ("P1", "P2")}, "cases": []}
+    for (kid, fn, op, reps), rate in zip(probes.cases(), rates):
+        a, b = (probes.p1_inputs(device=dev) if kid == "P1"
+                else probes.p2_inputs(op, device=dev))
+        got = fn(op, a, b, reps)
+        want = probes.chain_plain(op, a, b, reps)
+        sync()
+        if op in probes.F32_OPS:
+            same_inf = bool(torch.equal(torch.isinf(got), torch.isinf(want)))
+            fin = torch.isfinite(want)
+            diff = (got[fin].double() - want[fin].double()).abs()
+            err = float(diff.max()) if diff.numel() else 0.0
+            rel = float((diff / want[fin].double().abs()).max()) if diff.numel() else 0.0
+            ok = same_inf and (rel == 0.0 if op == "f32mul" else rel <= 1e-5)
+            finite = int(fin.sum())
+        else:
+            mask = 0xFFFFFFFF
+            err = int(((got.to(torch.int64) & mask)
+                       - (want.to(torch.int64) & mask)).abs().max())
+            rel, ok, finite = 0.0, err == 0, got.numel()
+        sass, short = (sass_of(funcs, f"{'f32' if op in probes.F32_OPS else 'u32'}"
+                                      f"_chain_kernelILi{probes._CODE[op]}ELi{r}EE")
+                       for r in (reps, 16))
+        # instructions of the op per chain step: the difference of this
+        # instantiation and the reps-16 one, so the address code drops out
+        per_step = (sass[CHAIN_OPCODE[op]] - short[CHAIN_OPCODE[op]]) / (reps - 16)
+        nbytes = 3 * a.numel() * a.element_size()
+        case = {"kernel": kid, "op": op, "reps": reps, "max_abs_err": err,
+                "max_rel_err": rel, "finite": finite, "gops": rate["gops"],
+                "instr_per_step": per_step, "ginstr": rate["gops"] * per_step,
+                "ms": rate["ms"], "ms_issued": probes.device_ms(
+                    lambda: fn(op, a, b, reps), graph=False),
+                "sass": dict(sass.most_common(4)),
+                **bound(nbytes, pipe_ms(sass, a.numel()))}
+        if (op, reps) == PROBE_ROW[kid]:
+            case["plain_ms"] = probes.device_ms(
+                lambda: probes.chain_plain(op, a, b, reps), 2, graph=False)
+        out["cases"].append(case)
+        log(f"[probe] {kid} {op:8s} reps={reps:4d} {rate['gops']:10.1f} G ops/s, "
+            f"{per_step:.3f} {CHAIN_OPCODE[op]} per step ({rate['ms']:.4f} ms "
+            f"graph, {case['ms_issued']:.4f} ms issued; bound "
+            f"{case['bound_ms']:.4f} ms by {case['bound_by']}) max_abs_err={err} "
+            f"max_rel={rel:.3g} SASS {case['sass']}")
+        if not ok:
+            raise AssertionError(f"{kid} {op} reps={reps} disagrees with its "
+                                 "plain version")
+    out["imad_per_s"] = max(c["gops"] for c in out["cases"]
+                            if c["op"] == "mul") * 1e9
+    log(f"[probe] P1 mul sustains {out['imad_per_s'] / 1e12:.3f} T IMAD/s, "
+        f"{100 * out['imad_per_s'] / INT32_PER_S:.1f} % of the card's "
+        f"{INT32_PER_S / 1e12:.2f} T/s that bounds B1-B6")
+    report["probes"] = out
+    return out
 
 
 def random_limbs(gen, shape, device):
@@ -99,8 +292,20 @@ def random_limbs(gen, shape, device):
     return torch.as_tensor(limbs.astype(np.int32), device=device)
 
 
-def check_kernels(dev, gen, srs) -> dict:
-    """B1-B6 against their plain versions at the main path's shapes."""
+def max_abs_err(a, b) -> int:
+    import torch
+
+    if isinstance(a, tuple):
+        return max(max_abs_err(x, y) for x, y in zip(a, b))
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def check_kernels(dev, gen, srs, funcs) -> dict:
+    """B1-B6 against their plain versions at the main path's shapes, with
+    the bytes and the integer instructions each call needs (by pipe, from
+    the SASS).  Kernel ms: CUDA graph replays; ms_issued: the same launches
+    issued one by one from Python, which shows where the host held the
+    kernel back."""
     import torch
 
     from tinyram_tpu_torch.curve import cuda_point as cp
@@ -109,46 +314,65 @@ def check_kernels(dev, gen, srs) -> dict:
     from tinyram_tpu_torch.field.field import FP, FP_PLAIN, FQ_PLAIN
     from tinyram_tpu_torch.poly import cuda_ntt
     from tinyram_tpu_torch.poly.ntt import radix2_stages
+    from tinyram_tpu_torch.probes import device_ms
 
     out = {}
+    sass = {kid: sass_of(funcs, part) for kid, part in SASS_NAME.items()}
 
-    def record(kid, kernel, plain, reps, plain_reps):
+    def record(kid, kernel, plain, reps, plain_reps, nbytes, ops, elements):
+        """ops: the SASS Counter that one of `elements` threads issues."""
         got = kernel()
         want = plain()
-        torch.cuda.synchronize()
+        sync()
         err = max_abs_err(got, want)
-        ms = gpu_ms(kernel, reps)
-        plain_ms = gpu_ms(plain, plain_reps)
-        out[kid] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        log(f"[kernel] {kid} max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        ms = device_ms(kernel, reps)
+        ms_issued = device_ms(kernel, reps, graph=False)
+        plain_ms = device_ms(plain, plain_reps, graph=False)
+        b = bound(nbytes, pipe_ms(ops, elements))
+        n_imad, n_alu = imad_count(ops) * elements, alu_count(ops) * elements
+        out[kid] = {"max_abs_err": err, "ms": ms, "ms_issued": ms_issued,
+                    "plain_ms": plain_ms, "imad": n_imad, "alu": n_alu, **b}
+        log(f"[kernel] {kid} max_abs_err={err} ms={ms:.4f} (issued "
+            f"{ms_issued:.4f}) plain_ms={plain_ms:.4f} bound_ms="
+            f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes / 1e6:.1f} MB, "
+            f"{n_imad / 1e6:.1f} M IMAD, {n_alu / 1e6:.1f} M ALU)")
         if err != 0:
             raise AssertionError(f"{kid} disagrees with its plain version")
 
     # B1 at (16, 2^18): one of the main path's wide elementwise products
-    a = random_limbs(gen, (1 << 18,), dev)
-    b = random_limbs(gen, (1 << 18,), dev)
+    n = 1 << 18
+    a = random_limbs(gen, (n,), dev)
+    b = random_limbs(gen, (n,), dev)
     record("B1", lambda: mont_mul(a, b, FP.params),
-           lambda: mont_mul_plain(a, b, FP.params), 50, 5)
+           lambda: mont_mul_plain(a, b, FP.params), 50, 5,
+           3 * FE_BYTES * n, sass["B1"], n)
 
     # B2 at the first level of a 64-column 2^14 lagrange->coeff: rows of
-    # 128 points with the cross twiddles as output multiplier
-    x = random_limbs(gen, (64 * 128, 128), dev)
+    # 128 points with the cross twiddles as output multiplier.  Each row
+    # does S/2 butterflies per stage and S output products, each counted
+    # as one Montgomery product of B1's SASS.
+    rows, log_s = 64 * 128, 7
+    x = random_limbs(gen, (rows, 1 << log_s), dev)
     cross = torch.as_tensor(
         cuda_ntt._cross_twiddles_host("Fp", 7, 7, True), device=dev)
+    products = rows * ((1 << log_s) // 2 * log_s + (1 << log_s))
     record("B2", lambda: cuda_ntt.colntt(x, FP, True, cross, None),
-           lambda: cuda_ntt.colntt_plain(x, FP, True, cross, None), 20, 2)
+           lambda: cuda_ntt.colntt_plain(x, FP, True, cross, None), 20, 2,
+           2 * FE_BYTES * x[0].numel() + FE_BYTES * (1 << log_s) // 2
+           + cross.numel() * cross.element_size(), sass["B1"], products)
     # and a whole batched transform, 16 x 2^17, through the four-step split
     xb = random_limbs(gen, (16, 1 << 17), dev)
     got = cuda_ntt.ntt_cuda(FP, xb)
     want = radix2_stages(FP_PLAIN, xb, False)
-    torch.cuda.synchronize()
+    sync()
     err = max_abs_err(got, want)
     log(f"[kernel] B2 four-step 16x2^17 max_abs_err={err}")
     if err:
         raise AssertionError("four-step NTT disagrees with the plain NTT")
 
     # B3-B6 at 2^15 lanes: SRS points, random projective scaling, and
-    # identity lanes mixed in
+    # identity lanes mixed in.  B3 and B5 add only where the mask is set:
+    # their accumulator is read and their products run on those lanes.
     lanes = 1 << 15
     idx = torch.as_tensor(gen.integers(0, srs.n, size=lanes), device=dev)
     gx, gy = srs.g.x[:, idx], srs.g.y[:, idx]
@@ -167,79 +391,27 @@ def check_kernels(dev, gen, srs) -> dict:
     p = projective(gx, gy)
     q = projective(gx.roll(7, 1), gy.roll(7, 1))
     mask = torch.as_tensor(gen.random(lanes) < 0.5, device=dev)
+    m = int(mask.sum())
+    pt = 3 * FE_BYTES
     record("B3", lambda: tuple(cp.padd_select_mixed(mask, p, gx, gy)),
-           lambda: tuple(cp.madd_select_plain(mask, p, gx, gy)), 50, 3)
+           lambda: tuple(cp.madd_select_plain(mask, p, gx, gy)), 50, 3,
+           lanes + 2 * FE_BYTES * lanes + pt * m + pt * lanes, sass["B3"], m)
     record("B4", lambda: tuple(cp.padd(p, q)),
-           lambda: tuple(cp.padd_plain(p, q)), 50, 3)
+           lambda: tuple(cp.padd_plain(p, q)), 50, 3,
+           3 * pt * lanes, sass["B4"], lanes)
     record("B5", lambda: tuple(cp.padd_select(mask, p, q)),
-           lambda: tuple(cp.padd_select_plain(mask, p, q)), 50, 3)
+           lambda: tuple(cp.padd_select_plain(mask, p, q)), 50, 3,
+           lanes + pt * lanes + pt * m + pt * lanes, sass["B5"], m)
     record("B6", lambda: tuple(cp.pdouble(p)),
-           lambda: tuple(cp.pdouble_plain(p)), 50, 3)
+           lambda: tuple(cp.pdouble_plain(p)), 50, 3,
+           2 * pt * lanes, sass["B6"], lanes)
+    out["imad_per_element"] = {k: imad_count(c) for k, c in sass.items()}
+    out["alu_per_element"] = {k: alu_count(c) for k, c in sass.items()}
     return out
-
-
-def main() -> int:
-
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, ROOT)
-    from tinyram_tpu_torch import kernels
-    from tinyram_tpu_torch.ipa import setup
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-         "-i", "0"], capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    log(smi)
-    report = {"nvidia_smi": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda}
-
-    t0 = time.time()
-    kernels.library()
-    report["build_s"] = time.time() - t0
-    log(f"[build] {report['build_s']:.1f}s (nvcc {kernels.build_seconds})")
-    for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[ptxas] {line.strip()}")
-
-    gen = np.random.default_rng(SEED)
-    t0 = time.time()
-    srs_check = setup(14, dev)
-    report["srs_k14_s"] = time.time() - t0
-    log(f"[main] srs setup, k=14 (host hash-to-curve): {report['srs_k14_s']:.2f}s")
-    checks = check_kernels(dev, gen, srs_check)
-    report["kernels"] = checks
-    launches = prove_config(dev, report)
-    golden_check(dev, report)
-
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_report.json"),
-              "w") as f:
-        json.dump(report, f, indent=1)
-    rows = []
-    for kid, (name, source, replaces) in REPLACES.items():
-        c = checks[kid]
-        rows.append({"name": f"{kid} {name}", "route": "cuda",
-                     "source": source, "replaces": replaces,
-                     "launches": launches[kid],
-                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                     "plain_ms": c["plain_ms"]})
-    print(json.dumps({"kernels": rows}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def prove_config(dev, report) -> dict:
     """The main path at BASELINE config 2."""
-    import torch
-
     from tinyram_tpu_torch import kernels
     from tinyram_tpu_torch.ipa import setup
     from tinyram_tpu_torch.plonk import create_proof
@@ -253,7 +425,7 @@ def prove_config(dev, report) -> dict:
     def timed(name, fn):
         t0 = time.time()
         out = fn()
-        torch.cuda.synchronize()
+        sync()
         t[name] = time.time() - t0
         log(f"[main] {name}: {t[name]:.2f}s")
         return out
@@ -277,7 +449,7 @@ def prove_config(dev, report) -> dict:
     phases = {k: v for k, v in counters.report().items()
               if k.startswith("prover.")}
     log(f"[main] launches during the proof: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in PROOF_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by the proof: {missing}")
     ok = timed("verify", lambda: circ.verify(srs, pk, prog, trace.answer, proof))
@@ -294,7 +466,174 @@ def prove_config(dev, report) -> dict:
     report["main"] = {"word_bits": W, "k": circ.k, "steps": len(trace),
                       "seconds": t, "phases": phases, "launches": launches,
                       "verifier_phases": verifier, "proof_bytes": len(proof)}
-    return launches
+    return {"circ": circ, "prog": prog, "trace": trace, "srs": srs, "pk": pk,
+            "proof": proof, "launches": launches}
+
+
+def mock_phase(dev, report, cfg) -> None:
+    """The mock prover on the config-2 trace: clean, then one forged
+    advice cell."""
+    import numpy as np
+    import torch
+
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.field import FP
+    from tinyram_tpu_torch.plonk import MockProver
+
+    circ, trace = cfg["circ"], cfg["trace"]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    clean = circ.mock_prove(trace, device=dev)
+    sync()
+    seconds = time.time() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[mock] config 2 clean: {len(clean)} failures, {seconds:.2f}s, "
+        f"peak device memory {peak} B, launches {launches}")
+    if clean:
+        raise AssertionError(f"mock failures on the clean trace: {clean[:5]}")
+    if launches["B1"] == 0:
+        raise AssertionError("B1 never launched by the mock")
+
+    family, column = MOCK_FORGE
+    asg = circ.assignment(trace, dev)
+    row = FP.decode(asg.get(circ.tcs.col.advice[f"out.{family}"])).index(1)
+    col = circ.tcs.col.advice[column]
+    vals = FP.decode(asg.get(col))
+    vals[row] = (vals[row] + 1) % FP.modulus
+    asg.set(col, np.array(vals, dtype=object))
+    t0 = time.time()
+    forged = MockProver(circ.tcs.cs, asg).verify()
+    forged_s = time.time() - t0
+    log(f"[mock] config 2, {column} + 1 on row {row}: {forged_s:.2f}s, "
+        f"{[str(f) for f in forged]}")
+    if not naming(forged, family):
+        raise AssertionError(f"forged {column} not reported by the {family} gate")
+    report["mock"] = {"seconds": seconds, "forged_seconds": forged_s,
+                      "peak_bytes": peak, "launches": launches,
+                      "forged": [str(f) for f in forged]}
+
+
+def negative_phase(dev, report) -> None:
+    """The 13 forged W=8 families: named by the mock, rejected by the
+    verifier; the clean proof accepted.  One SRS and one pk."""
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.ipa import setup
+    from tinyram_tpu_torch.plonk import MockProver, create_proof
+    from tinyram_tpu_torch.tinyram import (Imm, Instruction, Reg,
+                                           TinyRamCircuit, eval_program)
+
+    circ = TinyRamCircuit(8, 8)
+    prog = [Instruction("Mov", 2, None, Imm(55)),
+            Instruction("Shr", 3, 2, Imm(2)),
+            Instruction("Answer", None, None, Reg(3))]
+    tr = eval_program(prog, 8, 8)
+    t0 = time.time()
+    srs = setup(circ.k, dev)
+    pk = circ.keygen(srs)
+    kernels.reset_launch_counts()
+    proof = create_proof(srs, pk, circ.assignment(tr, dev))
+    if not circ.verify(srs, pk, prog, tr.answer, proof):
+        raise AssertionError("the clean W=8 proof is rejected")
+    per = {}
+    for family, payload in FAMILY_PAYLOADS:
+        t1 = time.time()
+        asg = forged_assignment(circ, tr, family, payload, dev)
+        fails = MockProver(circ.tcs.cs, asg).verify()
+        named = naming(fails, family)
+        if not named:
+            raise AssertionError(f"mock does not name {family}: "
+                                 f"{[f.name for f in fails]}")
+        proof = create_proof(srs, pk, asg)
+        if circ.verify(srs, pk, prog, tr.answer, proof):
+            raise AssertionError(f"forged {family} witness produced a "
+                                 "verifying proof")
+        per[family] = time.time() - t1
+        log(f"[negative] {family}: mock names it ({named[0]}), proof "
+            f"rejected, {per[family]:.2f}s")
+    seconds = time.time() - t0
+    launches = kernels.launch_counts()
+    log(f"[negative] 13 families + clean: {seconds:.2f}s, launches {launches}")
+    report["negative"] = {"seconds": seconds, "per_family": per,
+                          "launches": launches}
+
+
+def w16_phase(dev, report) -> None:
+    """W=16, k=10: tests/test_tinyram_proof.py::test_proof_w16's program."""
+    from tinyram_tpu_torch.ipa import setup
+    from tinyram_tpu_torch.tinyram import (Imm, Instruction, Reg,
+                                           TinyRamCircuit, eval_program)
+
+    circ = TinyRamCircuit(16, 8)
+    prog = [Instruction("Mov", 0, None, Imm(0xBEEF)),
+            Instruction("Mull", 1, 0, Imm(0x123)),
+            Instruction("Shr", 2, 1, Imm(5)),
+            Instruction("Cmpg", 2, None, Imm(0x7FFF)),
+            Instruction("CMov", 3, None, Imm(77)),
+            Instruction("Answer", None, None, Reg(2))]
+    tr = eval_program(prog, 16, 8)
+    t0 = time.time()
+    srs = setup(circ.k, dev)
+    pk = circ.keygen(srs)
+    proof = circ.prove(srs, pk, tr)
+    prove_s = time.time() - t0
+    ok = circ.verify(srs, pk, prog, tr.answer, proof)
+    bad = circ.verify(srs, pk, prog, tr.answer + 1, proof)
+    log(f"[w16] k={circ.k}: set-up + prove {prove_s:.2f}s, verify={ok}, "
+        f"answer+1 accepted={bad}")
+    if not ok or bad:
+        raise AssertionError("W=16 proof failed verification checks")
+    report["w16"] = {"k": circ.k, "prove_s": prove_s}
+
+
+def batch_phase(dev, report, cfg) -> None:
+    from tinyram_tpu_torch.plonk import BatchVerifier
+
+    circ, srs, vk = cfg["circ"], cfg["srs"], cfg["pk"].vk
+    prog, answer, proof = cfg["prog"], cfg["trace"].answer, cfg["proof"]
+    good = circ.instance_arrays(prog, answer)
+    wrong = circ.instance_arrays(prog, answer + 1)
+    t0 = time.time()
+    bv = BatchVerifier()
+    bv.add_proof(good, proof)
+    bv.add_proof(good, proof)
+    both = bv.finalize(srs, vk, rng=SeededRng(SEED))
+    bv = BatchVerifier()
+    bv.add_proof(good, proof)
+    bv.add_proof(wrong, proof)
+    mixed = bv.finalize(srs, vk, rng=SeededRng(SEED))
+    detailed = bv.finalize_detailed(srs, vk)
+    seconds = time.time() - t0
+    log(f"[batch] two good: {both}, good + answer+1: {mixed}, "
+        f"per proof {detailed}, {seconds:.2f}s")
+    if not both or mixed or detailed != [True, False]:
+        raise AssertionError("batch verifier gave a wrong verdict")
+    report["batch"] = {"seconds": seconds}
+
+
+def keyfile_phase(dev, report, cfg) -> None:
+    """save_pk / load_pk of the config-2 key: equal proof bytes."""
+    from tinyram_tpu_torch.plonk import create_proof, load_pk, save_pk
+
+    circ, srs, pk, trace = cfg["circ"], cfg["srs"], cfg["pk"], cfg["trace"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "config2_pk.npz")
+    t0 = time.time()
+    save_pk(path, pk)
+    save_s = time.time() - t0
+    size = os.path.getsize(path)
+    t0 = time.time()
+    loaded = load_pk(path, circ.tcs.cs, dev)
+    load_s = time.time() - t0
+    proof = create_proof(srs, loaded, circ.assignment(trace, dev),
+                         rng=SeededRng(SEED))
+    same = proof == cfg["proof"]
+    log(f"[keyfile] {size} B saved in {save_s:.2f}s, loaded in {load_s:.2f}s, "
+        f"proof bytes equal: {same}")
+    if not same:
+        raise AssertionError("the reloaded pk proves other bytes")
+    report["keyfile"] = {"bytes": size, "save_s": save_s, "load_s": load_s}
 
 
 def golden_check(dev, report) -> None:
@@ -324,6 +663,83 @@ def golden_check(dev, report) -> None:
     report["golden_w8"] = {"prove_s": dt, "equal": same, "verifies": ok}
     if not (same and ok):
         raise AssertionError("W=8 proof differs from the JAX package's")
+
+
+def kernel_rows(checks, probe, launches) -> list:
+    rows = []
+    for kid, (name, source, replaces) in KERNELS.items():
+        if kid in PROOF_KERNELS:
+            c = checks[kid]
+            n = launches[kid]
+        else:
+            op, reps = PROBE_ROW[kid]
+            c = next(x for x in probe["cases"]
+                     if (x["kernel"], x["op"], x["reps"]) == (kid, op, reps))
+            name = f"{name} ({op}, reps {reps})"
+            n = probe["launches"][kid]
+        rows.append({"name": f"{kid} {name}", "route": "cuda",
+                     "source": source, "replaces": replaces, "launches": n,
+                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                     "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                     "bound_by": c["bound_by"], "library_ms": None})
+    return rows
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from tinyram_tpu_torch import kernels, probes
+    from tinyram_tpu_torch.ipa import setup
+
+    dev = torch.device("cuda", 0)
+    smi = probes.nvidia_smi()
+    log(smi)
+    report = {"nvidia_smi": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    t_start = time.time()
+
+    t0 = time.time()
+    kernels.library()
+    report["build_s"] = time.time() - t0
+    log(f"[build] {report['build_s']:.1f}s (nvcc {kernels.build_seconds})")
+    for line in kernels.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[ptxas] {line.strip()}")
+    funcs = kernels.sass_opcodes()
+
+    probe = probe_phase(dev, report, funcs)
+    gen = np.random.default_rng(SEED)
+    t0 = time.time()
+    srs_check = setup(14, dev)
+    report["srs_k14_s"] = time.time() - t0
+    log(f"[main] srs setup, k=14 (host hash-to-curve): {report['srs_k14_s']:.2f}s")
+    checks = check_kernels(dev, gen, srs_check, funcs)
+    report["kernels"] = checks
+    cfg = prove_config(dev, report)
+    mock_phase(dev, report, cfg)
+    negative_phase(dev, report)
+    w16_phase(dev, report)
+    batch_phase(dev, report, cfg)
+    keyfile_phase(dev, report, cfg)
+    golden_check(dev, report)
+    report["total_s"] = time.time() - t_start
+    log(f"[total] {report['total_s']:.1f}s")
+
+    rows = kernel_rows(checks, probe, cfg["launches"])
+    report["kernel_rows"] = rows
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels B1-B6 against their plain versions, on the card.
+"""The port's CUDA kernels B1-B6, P1 and P2 against their plain versions,
+and the mock prover on the card against the CPU.
 
 Every test here needs an NVIDIA GPU: without one each skips (the decision is
 made in the `dev` fixture, not at import).  The machine with the card has no
@@ -8,7 +9,8 @@ JAX, so run them without the JAX test configuration:
 
 Inputs are made from seeds with numpy; the kernel runs on the card and its
 plain version on the same inputs on the CPU.  Tolerance 0: the arithmetic
-is exact and both keep canonical limbs.
+is exact and both keep canonical limbs.  P2's f32fma rounds once on the card
+and twice in its plain version: rtol 1e-5 there, with equal infinities.
 """
 
 import os
@@ -28,6 +30,7 @@ from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
 from tinyram_tpu_torch.ipa.srs import _hash_to_curve
 from tinyram_tpu_torch.poly import cuda_ntt
 from tinyram_tpu_torch.poly.ntt import ntt
+from tinyram_tpu_torch.tinyram import Imm, Instruction
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
@@ -164,3 +167,63 @@ def test_w8_proof_on_card_equals_jax_bytes(dev):
                                         rng=SeededRng(1))
     assert ok
     assert proof == rec["proof_answer"].tobytes()
+
+
+@pytest.mark.parametrize("reps", [16, 64])
+@pytest.mark.parametrize("op", ["add", "mul", "mulmask"])
+def test_p1_probe(dev, op, reps):
+    from tinyram_tpu_torch import probes
+
+    a, b = probes.p1_inputs(shape=(16, 4096), seed=reps, device="cpu")
+    before = probes.vpu_chain.launches
+    _gpu_equals_cpu(probes.vpu_chain(op, a.to(dev), b.to(dev), reps),
+                    probes.vpu_chain(op, a, b, reps))
+    assert probes.vpu_chain.launches == before + 1
+
+
+@pytest.mark.parametrize("op", ["u32mul", "u32add", "u32shift", "f32mul",
+                                "f32fma"])
+def test_p2_probe(dev, op):
+    from tinyram_tpu_torch import probes
+
+    a, b = probes.p2_inputs(op, shape=(512, 128), seed=3, device="cpu")
+    got = probes.vpu_ops(op, a.to(dev), b.to(dev)).cpu()
+    want = probes.vpu_ops(op, a, b)
+    if op == "f32fma":
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+def test_mock_on_card_equals_cpu(dev):
+    """W=8 forged witnesses: the same Failure list on the card and on the
+    CPU (payloads of tests/test_proof_negative.py)."""
+    from tinyram_tpu_torch.plonk import MockProver
+    from tinyram_tpu_torch.tinyram import Reg, TinyRamCircuit, eval_program
+
+    circ = TinyRamCircuit(8, 8)
+    prog = [Instruction("Mov", 2, None, Imm(55)),
+            Instruction("Shr", 3, 2, Imm(2)),
+            Instruction("Answer", None, None, Reg(3))]
+    tr = eval_program(prog, 8, 8)
+
+    def forged(device, family, payload):
+        asg = circ.assignment(tr, device=device)
+        row = len(tr) + 1
+        for name, off, value in [(f"out.{family}", 0, 1)] + payload:
+            col = circ.tcs.col.advice[name]
+            vals = FP.decode(asg.get(col))
+            vals[row + off] = value
+            asg.set(col, np.array(vals, dtype=object))
+        return asg
+
+    assert circ.mock_prove(tr, device=dev) == []
+    for family, payload in [("and", [("tv_c", 0, 7)]), ("sum", [("tv_a", 0, 5)]),
+                            ("flag4", [("flag", 1, 1)])]:
+        before = mont_mul.launches
+        on_card = MockProver(circ.tcs.cs, forged(dev, family, payload)).verify()
+        assert mont_mul.launches > before
+        on_cpu = MockProver(circ.tcs.cs, forged("cpu", family, payload)).verify()
+        assert on_card and [str(f) for f in on_card] == [str(f) for f in on_cpu]

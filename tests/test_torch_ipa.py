@@ -34,7 +34,7 @@ class SeededRng:
 
 
 def test_srs_generators_frozen_and_equal_to_jax():
-    srs = tsrs.setup(3)
+    srs = tsrs.setup(3, device="cpu")
     pts = to_affine_host(PointBatch(srs.g.x[:, :2], srs.g.y[:, :2],
                                     srs.g.z[:, :2]))
     h = hashlib.sha256(repr(pts).encode()).hexdigest()
@@ -51,8 +51,9 @@ def test_srs_generators_frozen_and_equal_to_jax():
 def test_srs_from_numpy_carries_the_jax_srs():
     js = jsrs.setup(3)
     carried = srs_from_numpy(np.asarray(js.g.x), np.asarray(js.g.y),
-                             np.asarray(js.g.z), js.u_host, js.w_host)
-    port = tsrs.setup(3)
+                             np.asarray(js.g.z), js.u_host, js.w_host,
+                             device="cpu")
+    port = tsrs.setup(3, device="cpu")
     assert carried.k == 3 and carried.g_host == port.g_host
     assert (carried.u_host, carried.w_host) == (port.u_host, port.w_host)
     for a, b in zip(carried.g, port.g):
@@ -74,7 +75,7 @@ def _oracle(srs, coeffs, blind=0):
 
 
 def test_commit_matches_host_oracle():
-    srs = tsrs.setup(4)
+    srs = tsrs.setup(4, device="cpu")
     rng = random.Random(7)
     cols = [[rng.randrange(P) for _ in range(16)] for _ in range(5)]
     cols[2] = [0] * 16  # the zero polynomial commits to the identity
@@ -90,7 +91,7 @@ def test_commit_matches_host_oracle():
 
 def test_open_verifies_and_tampering_fails():
     k = 3
-    srs = tsrs.setup(k)
+    srs = tsrs.setup(k, device="cpu")
     n = 1 << k
     rng = random.Random(70 + k)
     coeffs = [rng.randrange(P) for _ in range(n)]

@@ -78,7 +78,7 @@ def test_b2_plain_multipliers():
 
 def test_domain_matches_jax():
     k, ext = 6, 8
-    jd, td = JDomain(JFP, k, ext), Domain(FP, k, ext)
+    jd, td = JDomain(JFP, k, ext), Domain(FP, k, ext, "cpu")
     a = _rand((2, 1 << k), seed=11)
     coeff_j = jd.lagrange_to_coeff(jnp.asarray(a))
     coeff_t = td.lagrange_to_coeff(_t(a))

@@ -47,7 +47,7 @@ def circuit():
 
 @pytest.fixture(scope="module")
 def keys(circuit):
-    srs = setup(circuit.k)
+    srs = setup(circuit.k, device="cpu")
     return srs, circuit.keygen(srs)
 
 
@@ -64,7 +64,7 @@ def test_keygen_matches_recorded_vk(golden, circuit, keys):
 
 def test_pk_from_numpy_equals_port_keygen(golden, circuit, keys):
     _, pk = keys
-    carried = pk_from_numpy(golden, circuit.tcs.cs)
+    carried = pk_from_numpy(golden, circuit.tcs.cs, device="cpu")
     assert (carried.vk.k, carried.vk.extended_k) == (pk.vk.k, pk.vk.extended_k)
     assert carried.vk.fixed_commitments == pk.vk.fixed_commitments
     assert carried.vk.perm_columns == pk.vk.perm_columns
@@ -72,7 +72,7 @@ def test_pk_from_numpy_equals_port_keygen(golden, circuit, keys):
         a, b = getattr(carried, name), getattr(pk, name)
         assert len(a) == len(b)
         assert all(torch.equal(x, y) for x, y in zip(a, b)), name
-    assert limbs(golden["fixed_lag"][0]).dtype == torch.int32
+    assert limbs(golden["fixed_lag"][0], "cpu").dtype == torch.int32
 
 
 def test_verifier_accepts_jax_answer_proof_and_rejects_flipped_byte(
@@ -90,6 +90,9 @@ def test_port_never_imports_jax():
         "import importlib, pkgutil, sys\n"
         "import tinyram_tpu_torch\n"
         "import tinyram_tpu_torch.tinyram.circuit\n"
+        "import tinyram_tpu_torch.plonk.mock, tinyram_tpu_torch.plonk.batch\n"
+        "import tinyram_tpu_torch.plonk.serialize, tinyram_tpu_torch.plonk.layout\n"
+        "import tinyram_tpu_torch.tinyram.mem, tinyram_tpu_torch.probes\n"
         "for m in pkgutil.walk_packages(tinyram_tpu_torch.__path__,"
         " 'tinyram_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

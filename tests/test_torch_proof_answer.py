@@ -34,7 +34,8 @@ class SeededRng:
 def test_answer_proof_bytes_equal_jax():
     want = np.load(GOLDEN)["proof_answer"].tobytes()
     prog = [Instruction("Answer", None, None, Imm(0))]
-    trace, proof, ok = gen_proof_and_verify(8, 8, prog, rng=SeededRng(SEED))
+    trace, proof, ok = gen_proof_and_verify(8, 8, prog, device="cpu",
+                                           rng=SeededRng(SEED))
     assert trace.answer == 0
     assert proof == want
     assert ok

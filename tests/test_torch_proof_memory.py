@@ -51,8 +51,8 @@ def test_memory_proof_bytes_equal_jax():
     rec["fixed_commitments"] = points_from_bytes(rec["fixed_comm"],
                                                  rec["fixed_comm_none"])
     circ = TinyRamCircuit(8, 8)
-    srs = setup(circ.k)
-    pk = pk_from_numpy(rec, circ.tcs.cs)
+    srs = setup(circ.k, device="cpu")
+    pk = pk_from_numpy(rec, circ.tcs.cs, device="cpu")
     trace = eval_program(MEMORY, 8, 8, primary_tape=TAPE)
     assert trace.answer == 42
     proof = circ.prove(srs, pk, trace, rng=SeededRng(SEED))

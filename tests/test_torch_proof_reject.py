@@ -34,8 +34,9 @@ def verifier_inputs():
     rec["fixed_commitments"] = points_from_bytes(rec["fixed_comm"],
                                                  rec["fixed_comm_none"])
     circ = TinyRamCircuit(8, 8)
-    srs = setup(circ.k)
-    return circ, srs, pk_from_numpy(rec, circ.tcs.cs), rec["proof_memory"].tobytes()
+    srs = setup(circ.k, device="cpu")
+    pk = pk_from_numpy(rec, circ.tcs.cs, device="cpu")
+    return circ, srs, pk, rec["proof_memory"].tobytes()
 
 
 @pytest.mark.parametrize("answer,tape,accepted", [

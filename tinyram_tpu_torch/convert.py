@@ -17,9 +17,10 @@ from .ipa.srs import SRS
 from .plonk.circuit import ConstraintSystem
 from .plonk.keygen import ProvingKey, VerifyingKey
 from .poly.domain import Domain
+from .utils.device import CUDA
 
 
-def limbs(arr, device="cpu") -> torch.Tensor:
+def limbs(arr, device=CUDA) -> torch.Tensor:
     """(16, ...) reference limbs -> int32 tensor on `device`."""
     return torch.as_tensor(np.asarray(arr).astype(np.int32), device=device)
 
@@ -34,7 +35,7 @@ def points_from_bytes(raw: np.ndarray, is_none: np.ndarray) -> list:
     return out
 
 
-def srs_from_numpy(g_x, g_y, g_z, u, w, device="cpu") -> SRS:
+def srs_from_numpy(g_x, g_y, g_z, u, w, device=CUDA) -> SRS:
     """The reference SRS: g as (16, n) Montgomery limbs (x, y, z), u and w
     as affine host points."""
     g = vesta.PointBatch(limbs(g_x, device), limbs(g_y, device),
@@ -46,7 +47,7 @@ def srs_from_numpy(g_x, g_y, g_z, u, w, device="cpu") -> SRS:
                w_host=tuple(w), g=g)
 
 
-def pk_from_numpy(arrays: dict, cs: ConstraintSystem, device="cpu") -> ProvingKey:
+def pk_from_numpy(arrays: dict, cs: ConstraintSystem, device=CUDA) -> ProvingKey:
     """The reference ProvingKey from its arrays.
 
     ``arrays``: "k"; "fixed_lag", "fixed_coeff" (num_fixed, 16, n);

@@ -19,6 +19,7 @@ from ..curve import PointBatch, from_affine_host
 from ..curve.host import AffinePoint, is_on_curve
 from ..field.params import CURVE_B, Q_VESTA_BASE
 from ..transcript.transcript import _sqrt_mod
+from ..utils.device import CUDA, resolve
 
 
 def _hash_to_curve(label: bytes, index: int) -> AffinePoint:
@@ -90,8 +91,9 @@ def _gen_host(k: int, cache_dir: str | None):
 _SRS_CACHE: dict = {}
 
 
-def setup(k: int, device="cpu", cache_dir: str | None = None) -> SRS:
+def setup(k: int, device=CUDA, cache_dir: str | None = None) -> SRS:
     """Build (or load) the SRS for circuits of size 2^k on `device`."""
+    device = resolve(device)
     key = (k, str(device))
     if key not in _SRS_CACHE:
         g_host, u_host, w_host = _gen_host(k, cache_dir)

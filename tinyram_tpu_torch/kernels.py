@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`) as one library.
 
 `library()` compiles every `.cu` file under `csrc/` with `nvcc` for
-`sm_90a` into `build/kernels/libtinyram_kernels.so` at the checkout root,
+`sm_90a`, one process per file in parallel, and links them into
+`build/kernels/<hash>/libtinyram_kernels.so` at the checkout root,
 once per content hash of the sources, and loads it with ctypes.  Each C
 entry point takes its pointers and the CUDA stream as `void*` and returns
 `cudaGetLastError()` after its launch; `check()` raises on a non-zero code.
@@ -10,10 +11,12 @@ A failed build raises: there is no fallback to the plain versions.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -53,28 +56,43 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if the library for this source hash is missing;
-    returns its path."""
+    returns its path.  One `nvcc -c` per source, all started together, then
+    one link; the object files are removed after it."""
     global build_seconds, build_log
     out_dir = os.path.join(BUILD_DIR, _digest())
     lib_path = os.path.join(out_dir, LIB_NAME)
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    tmp = lib_path + f".tmp{os.getpid()}"
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
-        "-I", SRC_DIR, "-o", tmp, *_sources(),
+    tag = f".tmp{os.getpid()}"
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+    cmds = [
+        [_nvcc(), *flags, "-Xptxas", "-v", "-lineinfo", "-I", SRC_DIR, "-c",
+         "-o", os.path.join(out_dir, f"{os.path.basename(src)}{tag}.o"), src]
+        for src in _sources()
     ]
+    link = [_nvcc(), *flags, "-shared", "-o", lib_path + tag,
+            *(cmd[cmd.index("-o") + 1] for cmd in cmds)]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [(cmd, proc.communicate()[0], proc.returncode)
+            for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
     build_seconds = time.time() - t0
-    build_log = proc.stdout + proc.stderr
+    for obj in link[link.index(lib_path + tag) + 1:]:
+        if os.path.exists(obj):
+            os.remove(obj)
+    build_log = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in logs)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, lib_path)
+        f.write(build_log)
+    failed = [rc for _, _, rc in logs if rc != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+    os.replace(lib_path + tag, lib_path)
     return lib_path
 
 
@@ -98,6 +116,9 @@ _SIGNATURES = {
     "tr_padd_select": [_VP] * 10 + [_I64, _VP],
     # B6: 2p       (px, py, pz, ox, oy, oz, n, stream)
     "tr_pdouble": [_VP] * 6 + [_I64, _VP],
+    # P1/P2: REPS chained op(x, b) per element
+    #     (op, reps, a, b, out, n, stream)
+    "tr_vpu_probe": [_INT, _INT, _VP, _VP, _VP, _I64, _VP],
     "tr_error_string": [_INT],
 }
 
@@ -113,6 +134,35 @@ def library():
             fn.restype = ctypes.c_char_p if name == "tr_error_string" else _INT
         _lib = lib
     return _lib
+
+
+def _cuobjdump() -> str:
+    for cand in ("/usr/local/cuda/bin/cuobjdump", shutil.which("cuobjdump")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("cuobjdump not found: the SASS cannot be read")
+
+
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes() -> dict:
+    """SASS of the built library, per kernel: mangled name -> Counter of
+    opcodes (`cuobjdump -sass`).  Names are matched by their
+    length-prefixed identifier, e.g. "11padd_kernel"."""
+    out = subprocess.run([_cuobjdump(), "-sass", build()], capture_output=True,
+                         text=True, check=True).stdout
+    funcs: dict = {}
+    cur = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(),
+                                   collections.Counter())
+        elif cur is not None:
+            m = _SASS_LINE.search(line)
+            if m:
+                cur[m.group(1)] += 1
+    return funcs
 
 
 def check(code: int, name: str) -> None:

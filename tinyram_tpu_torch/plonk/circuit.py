@@ -32,6 +32,7 @@ import torch
 
 from ..field.field import FP
 from ..field.params import N_LIMBS
+from ..utils.device import CUDA, resolve
 from .expr import ADVICE, FIXED, INSTANCE, Expr, Var
 
 
@@ -217,10 +218,10 @@ class Assignment:
     Helpers accept numpy int arrays (values mod p) and encode them.
     """
 
-    def __init__(self, cs: ConstraintSystem, n: int, device="cpu"):
+    def __init__(self, cs: ConstraintSystem, n: int, device=CUDA):
         self.cs = cs
         self.n = n
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.fixed: list[Optional[torch.Tensor]] = [None] * cs.num_fixed
         self.advice: list[Optional[torch.Tensor]] = [None] * cs.num_advice
         self.instance: list[Optional[torch.Tensor]] = [None] * cs.num_instance

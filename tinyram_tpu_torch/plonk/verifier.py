@@ -17,7 +17,7 @@ import torch
 from ..curve import host_jacobian
 from ..field.field import FP
 from ..ipa import SRS
-from ..ipa.ipa import commit_many, verify_open
+from ..ipa.ipa import commit_many, verify_open, verify_open_deferred
 from ..poly.domain import Domain
 from ..poly.ntt import eval_poly
 from ..transcript import TranscriptReader
@@ -103,7 +103,10 @@ def _instance_commitments(srs: SRS, dom: Domain, columns: list):
     return _INSTANCE_COMM_CACHE[key]
 
 
-def _verify(srs: SRS, vk: VerifyingKey, instances: list, proof: bytes) -> bool:
+def _verify(
+    srs: SRS, vk: VerifyingKey, instances: list, proof: bytes,
+    defer: list | None = None,
+) -> bool:
     cs = vk.cs
     n = 1 << vk.k
     dev = srs.device
@@ -326,6 +329,11 @@ def _verify(srs: SRS, vk: VerifyingKey, instances: list, proof: bytes) -> bool:
     t_comm = host_jacobian.lincomb(t_terms, q_comm)
 
     t0 = _phase("multiopen fold", t0)
+    if defer is not None:
+        # batch mode: parse + constraint checks done; hand the IPA check
+        # to the accumulator (plonk/batch.py) instead of evaluating it
+        defer.append(verify_open_deferred(srs, tr, t_comm, zstar, t_val))
+        return tr.finished()
     ok = verify_open(srs, tr, t_comm, zstar, t_val)
     _phase("ipa check", t0)
     return ok and tr.finished()

@@ -16,14 +16,15 @@ import torch
 
 from ..field.field import Field
 from ..field.params import N_LIMBS
+from ..utils.device import CUDA, resolve
 from .ntt import _mont_table, coeff_scale, ntt, omega_for, powers
 
 
 class Domain:
-    def __init__(self, field: Field, k: int, extended_k: int, device="cpu"):
+    def __init__(self, field: Field, k: int, extended_k: int, device=CUDA):
         assert extended_k >= k
         self.field = field
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.k = k
         self.n = 1 << k
         self.extended_k = extended_k

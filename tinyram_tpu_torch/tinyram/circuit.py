@@ -1,7 +1,8 @@
 """TinyRamCircuit: assemble constraint system + assignments, prove, verify.
 
-Port of `tinyram_tpu/tinyram/circuit.py` on the PyTorch PLONK core (the
-mock prover is not ported yet).  Tensors live on the SRS's device.
+Port of `tinyram_tpu/tinyram/circuit.py` on the PyTorch PLONK core.
+Tensors live on the SRS's device; `assignment`, `mock_prove` and
+`gen_proof_and_verify` run on the card unless given another device.
 """
 
 from __future__ import annotations
@@ -9,8 +10,9 @@ from __future__ import annotations
 import secrets
 
 from ..ipa import SRS, setup
-from ..plonk import Assignment, create_proof, keygen, verify_proof
+from ..plonk import Assignment, MockProver, create_proof, keygen, verify_proof
 from ..plonk.keygen import ProvingKey
+from ..utils.device import CUDA
 from .emulator import Trace, eval_program
 from .exe import TinyRamCS, exe_witness, fixed_columns, instance_columns
 from .isa import Program
@@ -29,7 +31,7 @@ class TinyRamCircuit:
         for name, arr in fixed_columns(self.tcs).items():
             asg.set(self.tcs.col.fixed[name], arr)
 
-    def assignment(self, trace: Trace, device="cpu") -> Assignment:
+    def assignment(self, trace: Trace, device=CUDA) -> Assignment:
         """Full assignment (fixed + advice + instance) for one trace."""
         asg = Assignment(self.tcs.cs, self.tcs.n, device)
         self._set_fixed(asg)
@@ -52,6 +54,11 @@ class TinyRamCircuit:
         for name, colh in self.tcs.col.instance.items():
             out[colh.index] = [int(v) for v in byname[name]]
         return out
+
+    def mock_prove(self, trace: Trace, device=CUDA) -> list:
+        """MockProver failures (empty = satisfied); mirrors
+        MockProver::assert_satisfied usage (circuits/mod.rs:364-375)."""
+        return MockProver(self.tcs.cs, self.assignment(trace, device)).verify()
 
     def keygen(self, srs: SRS) -> ProvingKey:
         asg = Assignment(self.tcs.cs, self.tcs.n, srs.device)
@@ -77,7 +84,7 @@ class TinyRamCircuit:
 
 def gen_proof_and_verify(
     word_bits: int, reg_count: int, prog: Program, primary=(), aux=(),
-    device="cpu", rng=secrets,
+    device=CUDA, rng=secrets,
 ):
     """End-to-end helper: emulate, set up, keygen, prove, verify."""
     circuit = TinyRamCircuit(word_bits, reg_count)
