@@ -18,12 +18,20 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
    SASS instructions of the op per chain step.
 3. Runs each kernel B1-B6 on the card at the main path's shapes and holds
    it against its plain PyTorch version on the same inputs: the outputs
-   must be equal limb for limb (tolerance 0: the arithmetic is exact).
+   must be equal limb for limb (tolerance 0: the arithmetic is exact).  So
+   are the MSM's two loops in one launch each: the bucket scan B3s (128
+   steps of B3 at 2^15 lanes, config 2's `same` mask) and the ladder B5l
+   (256 steps of B6 and B5 at 2^15 lanes), each timed beside the Python
+   loop of one-step launches it replaces, and the one-step B3 and B5 are
+   timed at mask shares 0, 5, 50 and 100 % (`scripts/torch_point_sweep.py`).
+   The staged kernels (B3, B3s, B5, B5l) are bounded by the Montgomery
+   products they need, each at the SASS of their product loop.
 4. Drives the main path: BASELINE config 2 (the arithmetic/bitwise loop of
    ~2^12 steps at W=24, 8 registers, k=14) through TinyRamCircuit: SRS
    setup, keygen, witness, create_proof, verify; the proof must verify and
    must be rejected for answer + 1.  The launch counts are reset just
-   before the proof and each of B1-B6 must be > 0 after it.
+   before the proof; each of B1, B2, B3s, B4, B5, B5l, B6 must be > 0
+   after it, and the one-step B3 0 (the scan replaced it).
 5. The mock prover on config 2 at full width on the card: the clean trace
    gives no failure, one forged advice cell (tv_c on an And row) gives a
    failure named after the "and" gate; B1 launches > 0 during the mock.
@@ -65,10 +73,14 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
            "tinyram_tpu/poly/pallas_ntt.py:170"),
     "B3": ("madd_select", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:299"),
+    "B3s": ("madd_select_scan", "tinyram_tpu_torch/csrc/point.cu",
+            "tinyram_tpu/curve/pallas_point.py:299"),
     "B4": ("padd", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:255"),
     "B5": ("padd_select", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:274"),
+    "B5l": ("padd_select_ladder", "tinyram_tpu_torch/csrc/point.cu",
+            "tinyram_tpu/curve/pallas_point.py:274"),
     "B6": ("pdouble", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:324"),
     "P1": ("vpu_chain", "tinyram_tpu_torch/csrc/vpu_probe.cu",
@@ -76,13 +88,18 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
     "P2": ("vpu_ops", "tinyram_tpu_torch/csrc/vpu_probe.cu",
            "scripts/bench_vpu_ops.py:51"),
 }
-PROOF_KERNELS = ("B1", "B2", "B3", "B4", "B5", "B6")
+# launched by a config-2 proof (the one-step B3 is not: B3s replaced it)
+PROOF_KERNELS = ("B1", "B2", "B3s", "B4", "B5", "B5l", "B6")
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
-SASS_NAME = {"B1": "15mont_mul_kernelILi0E", "B3": "18madd_select_kernel",
-             "B4": "11padd_kernel", "B5": "18padd_select_kernel",
+SASS_NAME = {"B1": "15mont_mul_kernelILi0E", "B3": "16madd_scan_kernel",
+             "B3s": "16madd_scan_kernel", "B4": "11padd_kernel",
+             "B5": "18padd_select_kernel", "B5l": "13ladder_kernel",
              "B6": "14pdouble_kernel"}
+# Montgomery products of one RCB16 formula: add (Alg. 7), mixed add (8),
+# doubling (9)
+ADD, MADD, DBL = 12, 11, 8
 
 HBM_BYTES_PER_S = 3.35e12  # published H100 SXM memory rate (700 W part)
 F32_PER_S = 67e12 / 2  # published float32 rate, 67 TFLOP/s, as FMUL/FFMA per s
@@ -199,6 +216,32 @@ def bound(nbytes: float, ops_ms: float) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def product_loop(ins) -> tuple:
+    """(opcode counts of one Montgomery product, number of product loops)
+    in the SASS of a staged kernel (B3, B5 and their forms): its product
+    loops are the innermost loops (a backward branch and the instructions
+    from its target to it) that hold IMAD.HI; the counts are their mean."""
+    import collections
+    import re
+
+    loops = []
+    for addr, op, args in ins:
+        hexes = re.findall(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else []
+        if hexes and int(hexes[-1], 16) <= addr:
+            loops.append((int(hexes[-1], 16), addr))
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and d <= b and (c, d) != (a, b) for c, d in loops)]
+    bodies = [collections.Counter(op for addr, op, _ in ins if a <= addr <= b)
+              for a, b in inner]
+    bodies = [c for c in bodies if c["IMAD.HI.U32"]]
+    if not bodies:
+        raise AssertionError("SASS: no product loop found")
+    mean = collections.Counter()
+    for c in bodies:
+        mean.update(c)
+    return {k: v / len(bodies) for k, v in mean.items()}, len(bodies)
+
+
 def sass_of(funcs: dict, part: str):
     hits = [c for name, c in funcs.items() if part in name]
     if len(hits) != 1:
@@ -300,15 +343,17 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_kernels(dev, gen, srs, funcs) -> dict:
-    """B1-B6 against their plain versions at the main path's shapes, with
-    the bytes and the integer instructions each call needs (by pipe, from
-    the SASS).  Kernel ms: CUDA graph replays; ms_issued: the same launches
-    issued one by one from Python, which shows where the host held the
-    kernel back."""
+def check_kernels(dev, gen, srs, funcs, listing) -> dict:
+    """B1-B6, B3s and B5l against their plain versions at the main path's
+    shapes, with the bytes and the integer instructions each call needs (by
+    pipe, from the SASS).  Kernel ms: CUDA graph replays; ms_issued: the
+    same launches issued one by one from Python, which shows where the host
+    held the kernel back."""
     import torch
 
+    import torch_point_sweep as sweep
     from tinyram_tpu_torch.curve import cuda_point as cp
+    from tinyram_tpu_torch.curve import vesta
     from tinyram_tpu_torch.curve.vesta import PointBatch
     from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
     from tinyram_tpu_torch.field.field import FP, FP_PLAIN, FQ_PLAIN
@@ -318,6 +363,19 @@ def check_kernels(dev, gen, srs, funcs) -> dict:
 
     out = {}
     sass = {kid: sass_of(funcs, part) for kid, part in SASS_NAME.items()}
+    # the staged kernels: one product's SASS and the number of product
+    # loops; per lane (and step), the whole SASS with each loop run out
+    product, per_lane = {}, {}
+    for kid, products in (("B3", MADD), ("B5", ADD), ("B5l", DBL + ADD)):
+        product[kid], loops = product_loop(sass_of(listing, SASS_NAME[kid]))
+        per_lane[kid] = {
+            op: sass[kid][op] + (products - loops) * product[kid].get(op, 0)
+            for op in set(sass[kid]) | set(product[kid])}
+        log(f"[sass] {kid}: {loops} product loops, per product IMAD "
+            f"{imad_count(product[kid]):.0f} ALU {alu_count(product[kid]):.0f}; "
+            f"per lane{' and step' if kid == 'B5l' else ''} IMAD "
+            f"{imad_count(per_lane[kid]):.0f} ALU {alu_count(per_lane[kid]):.0f}")
+    product["B3s"], per_lane["B3s"] = product["B3"], per_lane["B3"]
 
     def record(kid, kernel, plain, reps, plain_reps, nbytes, ops, elements):
         """ops: the SASS Counter that one of `elements` threads issues."""
@@ -395,18 +453,58 @@ def check_kernels(dev, gen, srs, funcs) -> dict:
     pt = 3 * FE_BYTES
     record("B3", lambda: tuple(cp.padd_select_mixed(mask, p, gx, gy)),
            lambda: tuple(cp.madd_select_plain(mask, p, gx, gy)), 50, 3,
-           lanes + 2 * FE_BYTES * lanes + pt * m + pt * lanes, sass["B3"], m)
+           lanes + 2 * FE_BYTES * lanes + pt * m + pt * lanes, product["B3"],
+           MADD * m)
     record("B4", lambda: tuple(cp.padd(p, q)),
            lambda: tuple(cp.padd_plain(p, q)), 50, 3,
            3 * pt * lanes, sass["B4"], lanes)
     record("B5", lambda: tuple(cp.padd_select(mask, p, q)),
            lambda: tuple(cp.padd_select_plain(mask, p, q)), 50, 3,
-           lanes + pt * lanes + pt * m + pt * lanes, sass["B5"], m)
+           lanes + pt * lanes + pt * m + pt * lanes, product["B5"], ADD * m)
     record("B6", lambda: tuple(cp.pdouble(p)),
            lambda: tuple(cp.pdouble_plain(p)), 50, 3,
            2 * pt * lanes, sass["B6"], lanes)
+
+    # B3s and B5l at config 2's shapes: the bucket scan of one group (L =
+    # 128 steps at 2^15 lanes, `same` from sorted random c = 13 digits) and
+    # one IPA round's ladder (R = 256 bits at 2^15 lanes), each beside the
+    # Python loop of one-step launches it replaces.
+    L, R = 128, 256
+    same = sweep.bucket_same(gen, L, lanes, device=dev)
+    pick = torch.as_tensor(gen.integers(0, srs.n, size=L * lanes), device=dev)
+    sx, sy = (c[:, pick].reshape(16, L, lanes).transpose(0, 1).contiguous()
+              for c in (srs.g.x, srs.g.y))
+    bits = torch.as_tensor(gen.random((R, lanes)) < 0.5, device=dev)
+    n_same, n_bits = int(same.sum()), int(bits.sum())
+    ident = vesta.identity((lanes,), dev)
+    record("B3s", lambda: tuple(cp.padd_select_mixed_scan(same, sx, sy)),
+           lambda: tuple(cp.madd_select_scan_plain(same, sx, sy)), 2, 1,
+           L * lanes + 2 * FE_BYTES * L * lanes + 3 * FE_BYTES * L * lanes,
+           product["B3s"], MADD * n_same)
+    record("B5l", lambda: tuple(cp.padd_select_ladder(bits, p)),
+           lambda: tuple(cp.ladder_plain(bits, p)), 2, 1,
+           R * lanes + 2 * pt * lanes, product["B5l"],
+           DBL * R * lanes + ADD * n_bits)
+    for kid, loop in (
+            ("B3s", lambda: sweep.scan_loop(cp, same, sx, sy, ident)),
+            ("B5l", lambda: sweep.ladder_loop(cp, bits, p, ident))):
+        c = out[kid]
+        c["loop_ms"] = device_ms(loop, 1)
+        c["loop_ms_issued"] = device_ms(loop, 1, graph=False)
+        log(f"[kernel] {kid} one launch {c['ms']:.4f} ms graph, "
+            f"{c['ms_issued']:.4f} ms issued; the loop of one-step launches "
+            f"it replaces {c['loop_ms']:.4f} ms graph, "
+            f"{c['loop_ms_issued']:.4f} ms issued")
+    out["B3s"]["same_share"] = n_same / (L * lanes)
+    out["B5l"]["bit_share"] = n_bits / (R * lanes)
+    out["sweep"] = sweep.sweep(dev, cp, device_ms)
     out["imad_per_element"] = {k: imad_count(c) for k, c in sass.items()}
     out["alu_per_element"] = {k: alu_count(c) for k, c in sass.items()}
+    out["staged"] = {k: {"per_product_imad": imad_count(product[k]),
+                         "per_product_alu": alu_count(product[k]),
+                         "per_lane_imad": imad_count(per_lane[k]),
+                         "per_lane_alu": alu_count(per_lane[k])}
+                     for k in product}
     return out
 
 
@@ -452,6 +550,8 @@ def prove_config(dev, report) -> dict:
     missing = [k for k in PROOF_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched by the proof: {missing}")
+    if launches["B3"]:
+        raise AssertionError("the proof launched the one-step B3, not B3s")
     ok = timed("verify", lambda: circ.verify(srs, pk, prog, trace.answer, proof))
     ok_warm = timed("verify warm", lambda: circ.verify(
         srs, pk, prog, trace.answer, proof))
@@ -668,7 +768,7 @@ def golden_check(dev, report) -> None:
 def kernel_rows(checks, probe, launches) -> list:
     rows = []
     for kid, (name, source, replaces) in KERNELS.items():
-        if kid in PROOF_KERNELS:
+        if kid in checks:
             c = checks[kid]
             n = launches[kid]
         else:
@@ -692,7 +792,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     from tinyram_tpu_torch import kernels, probes
     from tinyram_tpu_torch.ipa import setup
 
@@ -710,7 +810,8 @@ def main() -> int:
     for line in kernels.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
-    funcs = kernels.sass_opcodes()
+    listing = kernels.sass()
+    funcs = kernels.sass_opcodes(listing)
 
     probe = probe_phase(dev, report, funcs)
     gen = np.random.default_rng(SEED)
@@ -718,7 +819,7 @@ def main() -> int:
     srs_check = setup(14, dev)
     report["srs_k14_s"] = time.time() - t0
     log(f"[main] srs setup, k=14 (host hash-to-curve): {report['srs_k14_s']:.2f}s")
-    checks = check_kernels(dev, gen, srs_check, funcs)
+    checks = check_kernels(dev, gen, srs_check, funcs, listing)
     report["kernels"] = checks
     cfg = prove_config(dev, report)
     mock_phase(dev, report, cfg)

@@ -124,6 +124,79 @@ def test_b3_to_b6_points(dev, points):
     _equal(cp.pdouble(dp), cp.pdouble_plain(p))
 
 
+def _mask(kind, n, seed):
+    if kind == "none":
+        return torch.zeros(n, dtype=torch.bool)
+    if kind == "all":
+        return torch.ones(n, dtype=torch.bool)
+    return torch.as_tensor(np.random.default_rng(seed).random(n) < 0.5)
+
+
+@pytest.mark.parametrize("kind", ["none", "all", "mixed"])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_b3_b5_one_step_masks(dev, points, kind, n):
+    """The one-step B3 (B3s's kernel with L = 1) and B5: masks all-false,
+    all-true and mixed; n = 1 and n not a multiple of the 64-lane block;
+    identity lanes in p and q."""
+    p, q, qa = (PointBatch(*(c[:, :n] for c in b)) for b in points[:3])
+    mask = _mask(kind, n, n)
+    dp, dq, dm = _on(p, dev), _on(q, dev), mask.to(dev)
+    b3, b5 = cp.padd_select_mixed.launches, cp.padd_select.launches
+    _equal(cp.padd_select_mixed(dm, dp, qa.x.to(dev), qa.y.to(dev)),
+           cp.madd_select_plain(mask, p, qa.x, qa.y))
+    _equal(cp.padd_select(dm, dp, dq), cp.padd_select_plain(mask, p, q))
+    assert (cp.padd_select_mixed.launches, cp.padd_select.launches) == (b3 + 1, b5 + 1)
+
+
+@pytest.fixture(scope="module")
+def pool():
+    pts = [_hash_to_curve(b"torch-cuda-loops", i) for i in range(8)]
+    return pts + [host.neg(pt) for pt in pts]
+
+
+@pytest.mark.parametrize("L,M", [(1, 1), (1, 65), (6, 130), (8, 1000)])
+def test_b3s_scan(dev, pool, L, M):
+    """B3s against its plain loop: columns of `same` all false, all true
+    and mixed, and an accumulator that P + (-P) turns into the identity."""
+    rng = np.random.default_rng(L * M)
+    idx = rng.integers(0, 8, size=(L, M))
+    same = rng.random((L, M)) < 0.5
+    same[:, 0], same[:, -1] = False, True
+    neg = np.zeros((L, M), dtype=bool)
+    if L > 3:  # lanes 1..4: acc = P at step 1, then P + (-P) at step 2
+        same[1, 1:5], same[2, 1:5] = False, True
+        idx[2, 1:5] = idx[1, 1:5]
+        neg[2, 1:5] = True
+    aff = [from_affine_host([pool[int(idx[s, m]) + 8 * bool(neg[s, m])]
+                             for m in range(M)]) for s in range(L)]
+    sx = torch.stack([a.x for a in aff])
+    sy = torch.stack([a.y for a in aff])
+    same = torch.as_tensor(same)
+    before = cp.padd_select_mixed_scan.launches
+    got = cp.padd_select_mixed_scan(same.to(dev), sx.to(dev), sy.to(dev))
+    assert cp.padd_select_mixed_scan.launches == before + 1
+    want = cp.madd_select_scan_plain(same, sx, sy)
+    _equal(got, want)
+    if L > 3:
+        assert (want.z[2, :, 1:5] == 0).all()
+
+
+@pytest.mark.parametrize("R,n", [(1, 1), (1, 65), (8, 130), (8, 1000)])
+def test_b5l_ladder(dev, points, R, n):
+    """B5l against its plain loop: identity points, bits all false and all
+    true on some lanes."""
+    p = PointBatch(*(c[:, :n] for c in points[0]))
+    bits = np.random.default_rng(R * n).random((R, n)) < 0.5
+    bits[:, 0] = True
+    if n > 1:
+        bits[:, 1] = False
+    bits = torch.as_tensor(bits)
+    before = cp.padd_select_ladder.launches
+    got = cp.padd_select_ladder(bits.to(dev), _on(p, dev))
+    assert cp.padd_select_ladder.launches == before + 1
+    _equal(got, cp.ladder_plain(bits, p))
+
+
 @pytest.mark.parametrize("n", [100, (1 << 15) + 40])
 def test_msm_on_card_matches_host(dev, n):
     """Both MSM paths on the card: bit-serial (B6, B5) and Pippenger (B3-B6)."""

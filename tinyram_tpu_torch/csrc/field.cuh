@@ -163,4 +163,174 @@ __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
   return cond_sub_p<F>(r);  // result < 2p, so t[8] == 0
 }
 
+// ---------------------------------------------------------------------------
+// Carry-chain arithmetic: the same functions as above (equal outputs, all
+// canonical), written in PTX with the hardware carry flag (add.cc/addc.cc,
+// sub.cc/subc.cc, mad.lo.cc/madc.hi.cc) instead of 64-bit sums, and with
+// p's zero words 4-6 taken as zeros.  The flag does not survive from one
+// asm statement to the next, so each chain is one asm block.
+
+template <int F>
+struct Mod {  // p's nonzero words; word 0 is 1, words 4-6 are 0
+  static constexpr uint32_t w1 = F == 0 ? 0x992D30EDu : 0x8C46EB21u;
+  static constexpr uint32_t w2 = F == 0 ? 0x094CF91Bu : 0x0994A8DDu;
+  static constexpr uint32_t w3 = 0x224698FCu;
+  static constexpr uint32_t w7 = 0x40000000u;
+};
+
+// t < 2p -> t mod p: d = t - p; keep t where that borrows.
+template <int F>
+__device__ __forceinline__ Fe cond_sub_p_cc(const Fe& t) {
+  using P = Mod<F>;
+  Fe d;
+  uint32_t borrow;
+  asm volatile(
+      "sub.cc.u32  %0, %9, 1;\n\t"
+      "subc.cc.u32 %1, %10, %17;\n\t"
+      "subc.cc.u32 %2, %11, %18;\n\t"
+      "subc.cc.u32 %3, %12, %19;\n\t"
+      "subc.cc.u32 %4, %13, 0;\n\t"
+      "subc.cc.u32 %5, %14, 0;\n\t"
+      "subc.cc.u32 %6, %15, 0;\n\t"
+      "subc.cc.u32 %7, %16, %20;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(d.w[0]), "=r"(d.w[1]), "=r"(d.w[2]), "=r"(d.w[3]),
+        "=r"(d.w[4]), "=r"(d.w[5]), "=r"(d.w[6]), "=r"(d.w[7]),
+        "=r"(borrow)
+      : "r"(t.w[0]), "r"(t.w[1]), "r"(t.w[2]), "r"(t.w[3]), "r"(t.w[4]),
+        "r"(t.w[5]), "r"(t.w[6]), "r"(t.w[7]), "n"(P::w1), "n"(P::w2),
+        "n"(P::w3), "n"(P::w7));
+  Fe r;  // borrow is all ones where t < p
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = (t.w[i] & borrow) | (d.w[i] & ~borrow);
+  return r;
+}
+
+template <int F>
+__device__ __forceinline__ Fe add_mod_cc(const Fe& a, const Fe& b) {
+  Fe s;
+  asm volatile(
+      "add.cc.u32  %0, %8, %16;\n\t"
+      "addc.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.u32    %7, %15, %23;"  // a + b < 2p < 2^256: no carry out
+      : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3]),
+        "=r"(s.w[4]), "=r"(s.w[5]), "=r"(s.w[6]), "=r"(s.w[7])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]),
+        "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]));
+  return cond_sub_p_cc<F>(s);
+}
+
+template <int F>
+__device__ __forceinline__ Fe sub_mod_cc(const Fe& a, const Fe& b) {
+  using P = Mod<F>;
+  Fe d;
+  uint32_t borrow;
+  asm volatile(
+      "sub.cc.u32  %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32    %8, 0, 0;"
+      : "=r"(d.w[0]), "=r"(d.w[1]), "=r"(d.w[2]), "=r"(d.w[3]),
+        "=r"(d.w[4]), "=r"(d.w[5]), "=r"(d.w[6]), "=r"(d.w[7]),
+        "=r"(borrow)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]),
+        "r"(a.w[5]), "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]),
+        "r"(b.w[2]), "r"(b.w[3]), "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]),
+        "r"(b.w[7]));
+  // a < b: add p back (borrow is all ones, so p & borrow is p)
+  asm volatile(
+      "add.cc.u32  %0, %0, %8;\n\t"
+      "addc.cc.u32 %1, %1, %9;\n\t"
+      "addc.cc.u32 %2, %2, %10;\n\t"
+      "addc.cc.u32 %3, %3, %11;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "addc.cc.u32 %6, %6, 0;\n\t"
+      "addc.u32    %7, %7, %12;"
+      : "+r"(d.w[0]), "+r"(d.w[1]), "+r"(d.w[2]), "+r"(d.w[3]),
+        "+r"(d.w[4]), "+r"(d.w[5]), "+r"(d.w[6]), "+r"(d.w[7])
+      : "r"(borrow & 1u), "r"(borrow & P::w1), "r"(borrow & P::w2),
+        "r"(borrow & P::w3), "r"(borrow & P::w7));
+  return d;
+}
+
+// CIOS a*b/2^256 mod p over 32-bit words.  Each outer step adds a_i*b as a
+// chain of low halves and a chain of high halves, then m*p (m = -t0, since
+// -p^-1 = -1 mod 2^32) the same way, skipping p's zero words; the low word
+// is then zero and the shift is a renaming.  t stays < 2^288 (p < 2^255),
+// so nine words hold it and the last high chain has no carry out.
+template <int F>
+__device__ __forceinline__ Fe mont_mul_cc(const Fe& a, const Fe& b) {
+  using P = Mod<F>;
+  uint32_t t[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t ai = a.w[i];
+    asm volatile(
+        "mad.lo.cc.u32  %0, %9, %10, %0;\n\t"
+        "madc.lo.cc.u32 %1, %9, %11, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %12, %2;\n\t"
+        "madc.lo.cc.u32 %3, %9, %13, %3;\n\t"
+        "madc.lo.cc.u32 %4, %9, %14, %4;\n\t"
+        "madc.lo.cc.u32 %5, %9, %15, %5;\n\t"
+        "madc.lo.cc.u32 %6, %9, %16, %6;\n\t"
+        "madc.lo.cc.u32 %7, %9, %17, %7;\n\t"
+        "addc.u32       %8, 0, 0;\n\t"  // t8 is 0 at the start of a step
+        "mad.hi.cc.u32  %1, %9, %10, %1;\n\t"
+        "madc.hi.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.hi.cc.u32 %3, %9, %12, %3;\n\t"
+        "madc.hi.cc.u32 %4, %9, %13, %4;\n\t"
+        "madc.hi.cc.u32 %5, %9, %14, %5;\n\t"
+        "madc.hi.cc.u32 %6, %9, %15, %6;\n\t"
+        "madc.hi.cc.u32 %7, %9, %16, %7;\n\t"
+        "madc.hi.u32    %8, %9, %17, %8;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+        : "r"(ai), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
+          "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]));
+    const uint32_t m = 0u - t[0];  // t0 * (-p^-1); m*p0 + t0 = 0 mod 2^32
+    asm volatile(
+        "add.cc.u32     %0, %0, %9;\n\t"  // p0 = 1
+        "madc.lo.cc.u32 %1, %9, %10, %1;\n\t"
+        "madc.lo.cc.u32 %2, %9, %11, %2;\n\t"
+        "madc.lo.cc.u32 %3, %9, %12, %3;\n\t"
+        "addc.cc.u32    %4, %4, 0;\n\t"
+        "addc.cc.u32    %5, %5, 0;\n\t"
+        "addc.cc.u32    %6, %6, 0;\n\t"
+        "madc.lo.cc.u32 %7, %9, %13, %7;\n\t"
+        "addc.u32       %8, %8, 0;\n\t"
+        "mad.hi.cc.u32  %2, %9, %10, %2;\n\t"  // hi(m * p0) = 0
+        "madc.hi.cc.u32 %3, %9, %11, %3;\n\t"
+        "madc.hi.cc.u32 %4, %9, %12, %4;\n\t"
+        "addc.cc.u32    %5, %5, 0;\n\t"
+        "addc.cc.u32    %6, %6, 0;\n\t"
+        "addc.cc.u32    %7, %7, 0;\n\t"
+        "madc.hi.u32    %8, %9, %13, %8;"
+        : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+          "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8])
+        : "r"(m), "n"(P::w1), "n"(P::w2), "n"(P::w3), "n"(P::w7));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];  // t0 is 0: divide by 2^32
+    t[8] = 0;
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r.w[i] = t[i];
+  return cond_sub_p_cc<F>(r);
+}
+
 }  // namespace tr

@@ -8,25 +8,38 @@ Replace the Pallas kernels of `tinyram_tpu/curve/pallas_point.py`:
   B5 `padd_select` (`_padd_select_call`): select(mask, p + q, q);
   B6 `pdouble` (`_pdouble_call`): doubling, RCB16 Algorithm 9.
 
+and two forms that run the JAX package's `lax.scan` over B3 and B5 inside one
+launch (`tinyram_tpu/curve/msm.py`: the bucket scan at 412-419, the
+bit-serial ladder at 693-698 and 714-718):
+
+  B3s `padd_select_mixed_scan`: L steps of B3 from the identity, every
+      step's accumulator returned;
+  B5l `padd_select_ladder`: R steps of acc = 2·acc (B6's Algorithm 9), then
+      acc = select(bit, p + acc, acc) (B5's Algorithm 7), from the identity.
+
 Each wrapper takes `(16, *batch)` int32 Fq limb tensors (Montgomery form)
 and a bool mask shaped like the batch.  A CUDA tensor goes to its kernel in
 `csrc/point.cu`, a CPU tensor to its plain version: the level-batched formula of
 `vesta.py` over `FQ_PLAIN` (same limbs: every field op is canonical),
-with the selects computing their sums on the selected lanes only.
+with the selects computing their sums on the selected lanes only; the two
+forms' plain versions are the Python loops over the one-step ones.
 
-Source note (the kernels, over `csrc/field.cuh`): one thread per lane
-gathers the coordinates (limb i of lane j at i·n + j, coalesced), packs
-each into 8 32-bit words held in registers, runs the RCB16 formula of
-`tinyram_tpu/curve/vesta.py` step for step with the field.cuh Montgomery
-multiply, add and subtract, selects, and unpacks.  A complete add is 12
-products (~1,000 32-bit multiply-adds) against 9 × 64 B of device traffic,
-so these kernels should be bound by the integer multiply rate and by
-register pressure (the live set is a dozen 8-word values).  `-Xptxas -v`
-at build time (CUDA 12.8, sm_90a) reports 108 registers for B3, 142 for B4,
-144 for B5 and 94 for B6, and no spills; at 128 threads a block that allows
-three or four blocks per SM.  One lane per thread keeps the code a
-transcription of the formulas; spreading a lane over several threads is
-later work.
+Source note (the kernels, over `csrc/field.cuh`).  A complete add is 12
+Montgomery products against 9 × 64 B of device traffic, so the kernels are
+bound by the integer pipes once more than a few lanes in a warp add.  B4
+and B6 run one lane per thread with the 64-bit-sum field functions, the
+formulas step for step.  B3 and B5, in every form, run one lane per thread
+with the carry-chain field functions (PTX add.cc/madc, p's zero words
+skipped), and run each formula as stages of independent products whose
+loop is not unrolled: the code holds one product per stage, and the
+ladder, unrolled, was three times as long and 1.5 times as slow.  Their
+forms keep the accumulator in registers across steps: the scan stages
+each step's q into shared memory by cp.async while the previous step
+computes, and the ladder reads its point once.  So the MSM's two
+sequential loops cost one launch each, not one per step, and no step
+sends the accumulator through device memory.  What still bounds them is
+the dependent carry chain of one product per thread: at 2^15 lanes a
+scheduler holds two warps.
 """
 
 from __future__ import annotations
@@ -55,31 +68,53 @@ def _check(tensors, device):
     for t in tensors:
         if t.dtype != torch.int32 or t.device != device:
             raise ValueError("point kernels take int32 limbs on one device")
+    if device.type != "cuda":
+        raise ValueError(f"point kernels: unsupported device {device}")
+
+
+def _u8(mask: torch.Tensor, n: int, device) -> torch.Tensor:
+    return mask.reshape(n).to(device=device, dtype=torch.uint8).contiguous()
+
+
+def _run(name, wrapper, device, tensors, *sizes):
+    """Launch `name` on `tensors` (None passes a null pointer); the list
+    keeps any temporary copies alive until the launch is issued."""
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    lib = kernels.library()
+    wrapper.launches += 1
+    kernels.check(
+        getattr(lib, name)(*ptrs, *sizes, kernels.stream_ptr(device)), name
+    )
 
 
 def _launch(name, wrapper, mask, ins, batch_shape):
     """Flatten, allocate the three outputs, launch `name`, unflatten."""
     device = ins[0].device
     _check(ins, device)
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
     n = _lanes(batch_shape)
-    flats = [_flat(t, n) for t in ins]
     outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
             for _ in range(3)]
-    if n == 0:
-        return PointBatch(*(o.reshape((N_LIMBS,) + batch_shape) for o in outs))
-    args = []
-    if mask is not None:
-        m = mask.reshape(n).to(device=device, dtype=torch.uint8).contiguous()
-        args.append(m.data_ptr())
-    args += [t.data_ptr() for t in flats] + [o.data_ptr() for o in outs]
-    lib = kernels.library()
-    wrapper.launches += 1
-    kernels.check(
-        getattr(lib, name)(*args, n, kernels.stream_ptr(device)), name
-    )
+    if n:
+        ts = [] if mask is None else [_u8(mask, n, device)]
+        ts += [_flat(t, n) for t in ins] + outs
+        _run(name, wrapper, device, ts, n)
     return PointBatch(*(o.reshape((N_LIMBS,) + batch_shape) for o in outs))
+
+
+def _scan(wrapper, same, acc, sx, sy) -> PointBatch:
+    """tr_madd_select_scan over (L, M) masks and (L, 16, M) points, from
+    `acc` (batch (M,)) or, when it is None, the identity."""
+    device = sx.device
+    _check([sx, sy] + ([] if acc is None else list(acc)), device)
+    L, M = same.shape
+    outs = [torch.empty((L, N_LIMBS, M), dtype=torch.int32, device=device)
+            for _ in range(3)]
+    if L * M:
+        ts = [_u8(same, L * M, device)]
+        ts += [None] * 3 if acc is None else [_flat(c, M) for c in acc]
+        ts += [t.reshape(L, N_LIMBS, M).contiguous() for t in (sx, sy)]
+        _run("tr_madd_select_scan", wrapper, device, ts + outs, L, M)
+    return PointBatch(*outs)
 
 
 # ---------------------------------------------------------------- plain
@@ -124,15 +159,50 @@ def pdouble_plain(p: PointBatch) -> PointBatch:
     return vesta.double(p, FQ_PLAIN)
 
 
+def madd_select_scan_plain(same, sx, sy) -> PointBatch:
+    """B3s's plain version: the loop of `madd_select_plain` steps."""
+    L, _, M = sx.shape
+    ys = [torch.empty((L, N_LIMBS, M), dtype=torch.int32, device=sx.device)
+          for _ in range(3)]
+    acc = vesta.identity((M,), sx.device)
+    for s in range(L):
+        acc = madd_select_plain(same[s], acc, sx[s], sy[s])
+        for coord, val in zip(ys, acc):
+            coord[s] = val
+    return PointBatch(*ys)
+
+
+def ladder_plain(bits, p: PointBatch) -> PointBatch:
+    """B5l's plain version: the loop of `pdouble_plain` and
+    `padd_select_plain` steps."""
+    acc = vesta.identity(tuple(bits.shape[1:]), p.x.device)
+    for bit in bits:
+        acc = padd_select_plain(bit, p, pdouble_plain(acc))
+    return acc
+
+
 # -------------------------------------------------------------- wrappers
 
 
 def padd_select_mixed(mask, acc: PointBatch, qx, qy) -> PointBatch:
-    """B3: select(mask, acc + (qx, qy, 1), (qx, qy, 1)); q finite."""
+    """B3: select(mask, acc + (qx, qy, 1), (qx, qy, 1)); q finite.  On the
+    card, B3s's kernel with one step from `acc`."""
     if qx.device.type == "cpu":
         return madd_select_plain(mask, acc, qx, qy)
-    return _launch("tr_madd_select", padd_select_mixed, mask,
-                   [acc.x, acc.y, acc.z, qx, qy], tuple(qx.shape[1:]))
+    batch = tuple(qx.shape[1:])
+    n = _lanes(batch)
+    ys = _scan(padd_select_mixed, mask.reshape(1, n), acc,
+               qx.reshape(1, N_LIMBS, n), qy.reshape(1, N_LIMBS, n))
+    return PointBatch(*(y.reshape((N_LIMBS,) + batch) for y in ys))
+
+
+def padd_select_mixed_scan(same, sx, sy) -> PointBatch:
+    """B3s: acc = identity; for s < L: acc = B3(same[s], acc, sx[s], sy[s]),
+    ys[s] = acc.  same (L, M) bool, sx and sy (L, 16, M) affine and finite;
+    returns ys as three (L, 16, M) tensors."""
+    if sx.device.type == "cpu":
+        return madd_select_scan_plain(same, sx, sy)
+    return _scan(padd_select_mixed_scan, same, None, sx, sy)
 
 
 def padd(p: PointBatch, q: PointBatch) -> PointBatch:
@@ -150,6 +220,26 @@ def padd_select(mask, p: PointBatch, q: PointBatch) -> PointBatch:
                    tuple(p.x.shape[1:]))
 
 
+def padd_select_ladder(bits, p: PointBatch) -> PointBatch:
+    """B5l: acc = identity; for r < R: acc = B5(bits[r], p, B6(acc)).
+    bits (R, *batch) bool, p batch `batch`; returns acc."""
+    if p.x.device.type == "cpu":
+        return ladder_plain(bits, p)
+    R = bits.shape[0]
+    batch = tuple(bits.shape[1:])
+    n = _lanes(batch)
+    device = p.x.device
+    _check(list(p), device)
+    if R == 0:
+        return vesta.identity(batch, device)
+    outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
+            for _ in range(3)]
+    if n:
+        ts = [_u8(bits, R * n, device)] + [_flat(c, n) for c in p] + outs
+        _run("tr_padd_select_ladder", padd_select_ladder, device, ts, R, n)
+    return PointBatch(*(o.reshape((N_LIMBS,) + batch) for o in outs))
+
+
 def pdouble(p: PointBatch) -> PointBatch:
     """B6: exception-free doubling."""
     if p.x.device.type == "cpu":
@@ -157,6 +247,7 @@ def pdouble(p: PointBatch) -> PointBatch:
     return _launch("tr_pdouble", pdouble, None, [*p], tuple(p.x.shape[1:]))
 
 
-for _id, _w in (("B3", padd_select_mixed), ("B4", padd), ("B5", padd_select),
-               ("B6", pdouble)):
+for _id, _w in (("B3", padd_select_mixed), ("B3s", padd_select_mixed_scan),
+                ("B4", padd), ("B5", padd_select), ("B5l", padd_select_ladder),
+                ("B6", pdouble)):
     kernels.register(_id, _w)

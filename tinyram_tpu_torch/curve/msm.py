@@ -6,8 +6,8 @@ Port of `tinyram_tpu/curve/msm.py`, same algorithm:
      point is negated when d < 0);
   2. points digit-sorted per window, then bucket sums by a chunked
      segmented scan: the sorted lane axis is cut into chunks of length L and
-     a loop of L steps of kernel B3 (mixed add-select) computes within-chunk
-     segmented inclusive sums at full lane width;
+     one launch of kernel B3s (L steps of the mixed add-select B3) computes
+     within-chunk segmented inclusive sums at full lane width;
   3. a log-width carry fixup (kernel B5) stitches segments that span chunk
      boundaries, and kernel B4 adds each chunk's incoming carry;
   4. segment-end rows land in their buckets (exactly one row per bucket);
@@ -15,10 +15,11 @@ Port of `tinyram_tpu/curve/msm.py`, same algorithm:
      suffix scan over lo (B4, B5), log-depth combines over hi (B4, B6);
   6. Horner over the windows with c doublings per step (B6, B4).
 
-Up to 2^15 lanes a bit-serial double-and-add (B6, B5 per bit) replaces it.
-The reference's `lax.scan` and `fori_loop` bodies are Python loops of
-kernel launches here.  The reference's environment knobs are keyword
-arguments with the same defaults (`window_bits`, `group_log2`,
+Up to 2^15 lanes a bit-serial double-and-add replaces it: one launch of
+kernel B5l (B6 then B5 per bit).  The reference's two `lax.scan` loops
+(bucket scan, ladder) run inside those kernels; its `fori_loop` bodies are
+Python loops of kernel launches here.  The reference's environment knobs
+are keyword arguments with the same defaults (`window_bits`, `group_log2`,
 `lanes_log2`); its opt-in batched-affine scan is not ported.
 """
 
@@ -31,7 +32,8 @@ import torch
 from ..field.field import FQ
 from ..field.params import N_LIMBS
 from . import vesta
-from .cuda_point import padd, padd_select, padd_select_mixed, pdouble
+from .cuda_point import (padd, padd_select, padd_select_ladder,
+                         padd_select_mixed_scan, pdouble)
 from .vesta import PointBatch
 
 SCALAR_BITS = 16 * N_LIMBS  # 256
@@ -175,13 +177,7 @@ def _group_bucket_sums(
          d_chunk[:, 1:] == d_chunk[:, :-1]], dim=-1,
     ).T.contiguous()  # (L, M)
 
-    ys = [torch.empty((L, N_LIMBS, M), dtype=torch.int32, device=dev)
-          for _ in range(3)]
-    acc = vesta.identity((M,), dev)
-    for step in range(L):
-        acc = padd_select_mixed(same[step], acc, sx[step], sy[step])
-        for coord, val in zip(ys, acc):
-            coord[step] = val
+    ys = padd_select_mixed_scan(same, sx, sy)  # (L, 16, M) each
     del sx, sy
 
     # ---- cross-chunk carry fixup (log-width over the chunk-lane axis)
@@ -351,11 +347,8 @@ def _msm_small(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
     lead = (N_LIMBS,) + (1,) * (len(bshape) - 1) + bshape[-1:]
     pts = PointBatch(*(c.reshape(lead).expand((N_LIMBS,) + bshape).contiguous()
                        for c in points))
-    acc = vesta.identity(bshape, scalars_plain.device)
-    for bit in _bits_msb_first(scalars_plain):
-        acc = pdouble(acc)
-        acc = padd_select(bit, pts, acc)
-    return _tree_reduce_last(acc)
+    return _tree_reduce_last(
+        padd_select_ladder(_bits_msb_first(scalars_plain), pts))
 
 
 def _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2):

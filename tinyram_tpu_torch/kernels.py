@@ -107,13 +107,17 @@ _SIGNATURES = {
     # B2: natural-order NTT of rows    (x, out, tw, mult, mult_rows, scale,
     #                                   rows, log_s, field, stream)
     "tr_ntt": [_VP, _VP, _VP, _VP, _I64, _VP, _I64, _INT, _INT, _VP],
-    # B3: select(mask, acc + (qx,qy,1), (qx,qy,1))
-    #     (mask, ax, ay, az, qx, qy, ox, oy, oz, n, stream)
-    "tr_madd_select": [_VP] * 9 + [_I64, _VP],
+    # B3 (L = 1) and B3s: L steps acc = select(same[s], acc + (qx,qy,1),
+    #     (qx,qy,1)), o*[s] = acc; a* null starts from the identity
+    #     (same, ax, ay, az, qx, qy, ox, oy, oz, L, n, stream)
+    "tr_madd_select_scan": [_VP] * 9 + [_I64, _I64, _VP],
     # B4: p + q    (px, py, pz, qx, qy, qz, ox, oy, oz, n, stream)
     "tr_padd": [_VP] * 9 + [_I64, _VP],
     # B5: select(mask, p + q, q)   (mask, p*, q*, o*, n, stream)
     "tr_padd_select": [_VP] * 10 + [_I64, _VP],
+    # B5l: R steps acc = select(bits[r], p + 2acc, 2acc) from the identity
+    #     (bits, px, py, pz, ox, oy, oz, R, n, stream)
+    "tr_padd_select_ladder": [_VP] * 7 + [_I64, _I64, _VP],
     # B6: 2p       (px, py, pz, ox, oy, oz, n, stream)
     "tr_pdouble": [_VP] * 6 + [_I64, _VP],
     # P1/P2: REPS chained op(x, b) per element
@@ -143,26 +147,33 @@ def _cuobjdump() -> str:
     raise RuntimeError("cuobjdump not found: the SASS cannot be read")
 
 
-_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)")
 
 
-def sass_opcodes() -> dict:
-    """SASS of the built library, per kernel: mangled name -> Counter of
-    opcodes (`cuobjdump -sass`).  Names are matched by their
-    length-prefixed identifier, e.g. "11padd_kernel"."""
+def sass() -> dict:
+    """SASS of the built library, per kernel (`cuobjdump -sass`): mangled
+    name -> [(address, opcode, operands)] in address order.  Names are
+    matched by their length-prefixed identifier, e.g. "11padd_kernel"."""
     out = subprocess.run([_cuobjdump(), "-sass", build()], capture_output=True,
                          text=True, check=True).stdout
     funcs: dict = {}
     cur = None
     for line in out.splitlines():
         if "Function :" in line:
-            cur = funcs.setdefault(line.split("Function :")[1].strip(),
-                                   collections.Counter())
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
         elif cur is not None:
             m = _SASS_LINE.search(line)
             if m:
-                cur[m.group(1)] += 1
+                cur.append((int(m.group(1), 16), m.group(2), m.group(3)))
     return funcs
+
+
+def sass_opcodes(listing: dict | None = None) -> dict:
+    """Mangled name -> Counter of SASS opcodes, from `listing` (what
+    `sass()` returns) or a fresh one."""
+    return {name: collections.Counter(op for _, op, _ in ins)
+            for name, ins in (listing or sass()).items()}
 
 
 def check(code: int, name: str) -> None:
