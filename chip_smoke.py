@@ -19,19 +19,26 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
 3. Runs each kernel B1-B6 on the card at the main path's shapes and holds
    it against its plain PyTorch version on the same inputs: the outputs
    must be equal limb for limb (tolerance 0: the arithmetic is exact).  So
-   are the MSM's two loops in one launch each: the bucket scan B3s (128
-   steps of B3 at 2^15 lanes, config 2's `same` mask) and the ladder B5l
-   (256 steps of B6 and B5 at 2^15 lanes), each timed beside the Python
-   loop of one-step launches it replaces, and the one-step B3 and B5 are
-   timed at mask shares 0, 5, 50 and 100 % (`scripts/torch_point_sweep.py`).
-   The staged kernels (B3, B3s, B5, B5l) are bounded by the Montgomery
-   products they need, each at the SASS of their product loop.
+   are the MSM's loops in one launch each: the bucket scan B3s (128 steps
+   of B3 at 2^15 lanes, config 2's `same` mask), the ladder B5l (256 steps
+   of B6 and B5 at 2^15 lanes), the weighted reduce's suffix scan B4s (64
+   steps of two B4 at 20 x 64 x 64 lanes) and the window combine B6h (20
+   windows of 13 doublings and one add, at 64 and 4 lanes), each timed
+   beside the Python loop of one-step launches it replaces; B6 with a count
+   (12 doublings at 1280 lanes) beside its loop too.  B6h runs with one
+   thread and with a group of four per lane, and on one lane with one
+   thread: the latency of one product in its chain of dependent products.
+   The one-step B3 and B5 are timed at mask shares 0, 5, 50 and 100 %
+   (`scripts/torch_point_sweep.py`).  The point kernels are bounded by the
+   Montgomery products they need, each at the SASS of a product loop.
 4. Drives the main path: BASELINE config 2 (the arithmetic/bitwise loop of
    ~2^12 steps at W=24, 8 registers, k=14) through TinyRamCircuit: SRS
    setup, keygen, witness, create_proof, verify; the proof must verify and
    must be rejected for answer + 1.  The launch counts are reset just
-   before the proof; each of B1, B2, B3s, B4, B5, B5l, B6 must be > 0
-   after it, and the one-step B3 0 (the scan replaced it).
+   before the proof; each of B1, B2, B3s, B4, B4s, B5, B5l, B6, B6h must
+   be > 0 after it, the one-step B3 0 (the scan replaced it), B4s as many
+   as B6h (one each per Pippenger MSM) and B6 at most two per B6h (the
+   doubling chains, no Horner steps).
 5. The mock prover on config 2 at full width on the card: the clean trace
    gives no failure, one forged advice cell (tv_c on an And row) gives a
    failure named after the "and" gate; B1 launches > 0 during the mock.
@@ -77,29 +84,39 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
             "tinyram_tpu/curve/pallas_point.py:299"),
     "B4": ("padd", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:255"),
+    "B4s": ("padd_suffix_scan", "tinyram_tpu_torch/csrc/point.cu",
+            "tinyram_tpu/curve/pallas_point.py:255"),
     "B5": ("padd_select", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:274"),
     "B5l": ("padd_select_ladder", "tinyram_tpu_torch/csrc/point.cu",
             "tinyram_tpu/curve/pallas_point.py:274"),
     "B6": ("pdouble", "tinyram_tpu_torch/csrc/point.cu",
            "tinyram_tpu/curve/pallas_point.py:324"),
+    "B6h": ("pdouble_horner", "tinyram_tpu_torch/csrc/point.cu",
+            "tinyram_tpu/curve/pallas_point.py:324"),
     "P1": ("vpu_chain", "tinyram_tpu_torch/csrc/vpu_probe.cu",
            "scripts/bench_vpu.py:45"),
     "P2": ("vpu_ops", "tinyram_tpu_torch/csrc/vpu_probe.cu",
            "scripts/bench_vpu_ops.py:51"),
 }
 # launched by a config-2 proof (the one-step B3 is not: B3s replaced it)
-PROOF_KERNELS = ("B1", "B2", "B3s", "B4", "B5", "B5l", "B6")
+PROOF_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B5l", "B6", "B6h")
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
 SASS_NAME = {"B1": "15mont_mul_kernelILi0E", "B3": "16madd_scan_kernel",
              "B3s": "16madd_scan_kernel", "B4": "11padd_kernel",
-             "B5": "18padd_select_kernel", "B5l": "13ladder_kernel",
-             "B6": "14pdouble_kernel"}
+             "B4s": "18suffix_scan_kernel", "B5": "18padd_select_kernel",
+             "B5l": "13ladder_kernel", "B6": "14pdouble_kernel",
+             "B6h": "13horner_kernelILi4E"}
 # Montgomery products of one RCB16 formula: add (Alg. 7), mixed add (8),
 # doubling (9)
 ADD, MADD, DBL = 12, 11, 8
+# the point kernels with product loops, and the products of one pass of
+# their kernel's body (B6h's group form has no product loop: it is bounded
+# at B4's, the same mont_mul_cc)
+STAGED = {"B3": MADD, "B4": ADD, "B4s": 2 * ADD, "B5": ADD, "B5l": DBL + ADD,
+          "B6": DBL}
 
 HBM_BYTES_PER_S = 3.35e12  # published H100 SXM memory rate (700 W part)
 F32_PER_S = 67e12 / 2  # published float32 rate, 67 TFLOP/s, as FMUL/FFMA per s
@@ -344,8 +361,8 @@ def max_abs_err(a, b) -> int:
 
 
 def check_kernels(dev, gen, srs, funcs, listing) -> dict:
-    """B1-B6, B3s and B5l against their plain versions at the main path's
-    shapes, with the bytes and the integer instructions each call needs (by
+    """B1-B6, B3s, B4s, B5l and B6h against their plain versions at the main
+    path's shapes, with the bytes and the integer instructions each call needs (by
     pipe, from the SASS).  Kernel ms: CUDA graph replays; ms_issued: the
     same launches issued one by one from Python, which shows where the host
     held the kernel back."""
@@ -363,29 +380,34 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
 
     out = {}
     sass = {kid: sass_of(funcs, part) for kid, part in SASS_NAME.items()}
-    # the staged kernels: one product's SASS and the number of product
+    # the point kernels: one product's SASS and the number of product
     # loops; per lane (and step), the whole SASS with each loop run out
     product, per_lane = {}, {}
-    for kid, products in (("B3", MADD), ("B5", ADD), ("B5l", DBL + ADD)):
+    for kid, products in STAGED.items():
         product[kid], loops = product_loop(sass_of(listing, SASS_NAME[kid]))
         per_lane[kid] = {
             op: sass[kid][op] + (products - loops) * product[kid].get(op, 0)
             for op in set(sass[kid]) | set(product[kid])}
         log(f"[sass] {kid}: {loops} product loops, per product IMAD "
             f"{imad_count(product[kid]):.0f} ALU {alu_count(product[kid]):.0f}; "
-            f"per lane{' and step' if kid == 'B5l' else ''} IMAD "
-            f"{imad_count(per_lane[kid]):.0f} ALU {alu_count(per_lane[kid]):.0f}")
+            f"per lane{' and step' if kid in ('B4s', 'B5l', 'B6') else ''} "
+            f"IMAD {imad_count(per_lane[kid]):.0f} ALU "
+            f"{alu_count(per_lane[kid]):.0f}")
     product["B3s"], per_lane["B3s"] = product["B3"], per_lane["B3"]
+    product["B6h"] = product["B4"]
 
-    def record(kid, kernel, plain, reps, plain_reps, nbytes, ops, elements):
-        """ops: the SASS Counter that one of `elements` threads issues."""
+    def record(kid, kernel, plain, reps, plain_reps, nbytes, ops, elements,
+               plain_ms=None):
+        """ops: the SASS Counter that one of `elements` threads issues;
+        plain_ms: the plain version's time where it was measured before."""
         got = kernel()
         want = plain()
         sync()
         err = max_abs_err(got, want)
         ms = device_ms(kernel, reps)
         ms_issued = device_ms(kernel, reps, graph=False)
-        plain_ms = device_ms(plain, plain_reps, graph=False)
+        if plain_ms is None:
+            plain_ms = device_ms(plain, plain_reps, graph=False)
         b = bound(nbytes, pipe_ms(ops, elements))
         n_imad, n_alu = imad_count(ops) * elements, alu_count(ops) * elements
         out[kid] = {"max_abs_err": err, "ms": ms, "ms_issued": ms_issued,
@@ -455,15 +477,29 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
            lambda: tuple(cp.madd_select_plain(mask, p, gx, gy)), 50, 3,
            lanes + 2 * FE_BYTES * lanes + pt * m + pt * lanes, product["B3"],
            MADD * m)
+    # B4 at 2^15 lanes: the carry fixup's width (G = 256 windows of 128
+    # chunk lanes at 64 MSM columns); and at 1280, the width of the final
+    # adds (20 windows of 64 columns)
     record("B4", lambda: tuple(cp.padd(p, q)),
            lambda: tuple(cp.padd_plain(p, q)), 50, 3,
-           3 * pt * lanes, sass["B4"], lanes)
+           3 * pt * lanes, product["B4"], ADD * lanes)
     record("B5", lambda: tuple(cp.padd_select(mask, p, q)),
            lambda: tuple(cp.padd_select_plain(mask, p, q)), 50, 3,
            lanes + pt * lanes + pt * m + pt * lanes, product["B5"], ADD * m)
-    record("B6", lambda: tuple(cp.pdouble(p)),
+    cols = 20 * 64
+    p_w, q_w = (PointBatch(*(c[:, :cols].contiguous() for c in x))
+                for x in (p, q))
+    record("B4@1280", lambda: tuple(cp.padd(p_w, q_w)),
+           lambda: tuple(cp.padd_plain(p_w, q_w)), 50, 3,
+           3 * pt * cols, product["B4"], ADD * cols)
+    # B6: one doubling at 2^15 lanes (the earlier table's shape), and the
+    # longer of the weighted reduce's doubling chains (c - 1 = 12 at 1280)
+    record("B6@2^15", lambda: tuple(cp.pdouble(p)),
            lambda: tuple(cp.pdouble_plain(p)), 50, 3,
-           2 * pt * lanes, sass["B6"], lanes)
+           2 * pt * lanes, product["B6"], DBL * lanes)
+    record("B6", lambda: tuple(cp.pdouble(p_w, times=12)),
+           lambda: tuple(cp.pdouble_plain(p_w, 12)), 20, 2,
+           2 * pt * cols, product["B6"], 12 * DBL * cols)
 
     # B3s and B5l at config 2's shapes: the bucket scan of one group (L =
     # 128 steps at 2^15 lanes, `same` from sorted random c = 13 digits) and
@@ -497,6 +533,61 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
             f"{c['loop_ms_issued']:.4f} ms issued")
     out["B3s"]["same_share"] = n_same / (L * lanes)
     out["B5l"]["bit_share"] = n_bits / (R * lanes)
+    del sx, sy, same
+
+    # B4s at config 2's shape: the suffix scan of 64 MSM columns (20
+    # windows x H = 64 lanes each, S = 64 steps of two adds); B6h at 64 and
+    # 4 columns (20 windows of c = 13)
+    S, n_s = 64, cols * 64
+    pick = torch.as_tensor(gen.integers(0, lanes, size=cols * (64 * S + 2)),
+                           device=dev)  # 4098 buckets per window, as in msm.py
+    b = PointBatch(*(c[:, pick].reshape(16, cols, 64 * S + 2)[..., :64 * S]
+                     .reshape(16, cols, 64, S) for c in p))
+    record("B4s", lambda: tuple(x for acc_tot in cp.padd_suffix_scan(b)
+                                for x in acc_tot),
+           lambda: tuple(x for acc_tot in cp.suffix_scan_plain(b)
+                         for x in acc_tot), 2, 1,
+           3 * FE_BYTES * S * n_s + 6 * FE_BYTES * n_s, product["B4s"],
+           (2 * S - 1) * ADD * n_s)
+    nw, c_bits = 20, 13
+    horner_products = nw * (c_bits * DBL + ADD)
+    for n_cols, tag in ((64, ""), (4, "@4")):
+        ws = PointBatch(*(c[:, :nw * n_cols].reshape(16, nw, n_cols) for c in p))
+        want = tuple(cp.horner_plain(ws, c_bits))
+        plain_ms = device_ms(lambda: cp.horner_plain(ws, c_bits), 1,
+                             graph=False)
+        for group, kid in ((4, "B6h" + tag), (1, "B6h G=1" + tag)):
+            record(kid, lambda: tuple(cp.pdouble_horner(ws, c_bits, group)),
+                   lambda: want, 3, 1, pt * nw * n_cols + pt * n_cols,
+                   product["B6h"], horner_products * n_cols, plain_ms)
+    # one lane, one thread: its products run one after another, so the
+    # time over their count is one product's latency at one warp (the
+    # additions between them included); the chain bound is the formulas'
+    # depth in products (2 per doubling, 2 per add) at that latency
+    one = PointBatch(*(c[:, :nw].reshape(16, nw, 1) for c in p))
+    latency_ms = device_ms(lambda: cp.pdouble_horner(one, c_bits, 1), 3) \
+        / horner_products
+    out["B6h"]["product_latency_us"] = latency_ms * 1e3
+    out["B6h"]["chain_ms"] = nw * (2 * c_bits + 2) * latency_ms
+    log(f"[kernel] B6h one product's latency {latency_ms * 1e3:.4f} us at "
+        f"one warp; chain bound {out['B6h']['chain_ms']:.4f} ms "
+        f"({nw * (2 * c_bits + 2)} dependent products)")
+
+    ident_s = vesta.identity((cols, 64), dev)
+    take = torch.ones((cols, 64), dtype=torch.bool, device=dev)
+    ws = PointBatch(*(c[:, :nw * 64].reshape(16, nw, 64) for c in p))
+    ident_h = vesta.identity((64,), dev)
+    for kid, loop in (
+            ("B4s", lambda: sweep.suffix_loop(cp, b, ident_s, take)),
+            ("B6h", lambda: sweep.horner_loop(cp, ws, c_bits, ident_h)),
+            ("B6", lambda: sweep.doubling_loop(cp, p_w, 12))):
+        c = out[kid]
+        c["loop_ms"] = device_ms(loop, 1)
+        c["loop_ms_issued"] = device_ms(loop, 1, graph=False)
+        log(f"[kernel] {kid} one launch {c['ms']:.4f} ms graph, "
+            f"{c['ms_issued']:.4f} ms issued; the loop of one-step launches "
+            f"it replaces {c['loop_ms']:.4f} ms graph, "
+            f"{c['loop_ms_issued']:.4f} ms issued")
     out["sweep"] = sweep.sweep(dev, cp, device_ms)
     out["imad_per_element"] = {k: imad_count(c) for k, c in sass.items()}
     out["alu_per_element"] = {k: alu_count(c) for k, c in sass.items()}
@@ -504,7 +595,7 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
                          "per_product_alu": alu_count(product[k]),
                          "per_lane_imad": imad_count(per_lane[k]),
                          "per_lane_alu": alu_count(per_lane[k])}
-                     for k in product}
+                     for k in per_lane}
     return out
 
 
@@ -552,6 +643,11 @@ def prove_config(dev, report) -> dict:
         raise AssertionError(f"kernels never launched by the proof: {missing}")
     if launches["B3"]:
         raise AssertionError("the proof launched the one-step B3, not B3s")
+    # one B4s and one B6h per Pippenger MSM, and B6 only for its two
+    # doubling chains: the Horner and the suffix scan ran no one-step steps
+    if launches["B4s"] != launches["B6h"] or launches["B6"] > 2 * launches["B6h"]:
+        raise AssertionError("the window combine or the suffix scan ran "
+                             f"one-step launches: {launches}")
     ok = timed("verify", lambda: circ.verify(srs, pk, prog, trace.answer, proof))
     ok_warm = timed("verify warm", lambda: circ.verify(
         srs, pk, prog, trace.answer, proof))

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels B1-B6, P1 and P2 against their plain versions,
-and the mock prover on the card against the CPU.
+"""The port's CUDA kernels B1-B6 (and the loop forms B3s, B4s, B5l, B6h),
+P1 and P2 against their plain versions, and the mock prover on the card
+against the CPU.
 
 Every test here needs an NVIDIA GPU: without one each skips (the decision is
 made in the `dev` fixture, not at import).  The machine with the card has no
@@ -22,7 +23,7 @@ import torch
 
 from tinyram_tpu_torch import kernels
 from tinyram_tpu_torch.curve import cuda_point as cp
-from tinyram_tpu_torch.curve import host
+from tinyram_tpu_torch.curve import host, vesta
 from tinyram_tpu_torch.curve.msm import msm, msm_many
 from tinyram_tpu_torch.curve.vesta import PointBatch, from_affine_host, to_affine_host
 from tinyram_tpu_torch.field import FP, FQ
@@ -122,6 +123,59 @@ def test_b3_to_b6_points(dev, points):
     _equal(cp.padd(dp, dq), cp.padd_plain(p, q))
     _equal(cp.padd_select(dm, dp, dq), cp.padd_select_plain(mask, p, q))
     _equal(cp.pdouble(dp), cp.pdouble_plain(p))
+
+
+@pytest.mark.parametrize("times", [0, 1, 12])
+@pytest.mark.parametrize("n", [1, 65, 1000])
+def test_b6_count(dev, points, times, n):
+    """B6 with a count: `times` doublings in one launch (none for 0)."""
+    p = PointBatch(*(c[:, :n] for c in points[0]))
+    before = cp.pdouble.launches
+    _equal(cp.pdouble(_on(p, dev), times=times), cp.pdouble_plain(p, times))
+    assert cp.pdouble.launches == before + (times > 0)
+
+
+@pytest.mark.parametrize("A,H,S", [(1, 1, 1), (1, 65, 2), (3, 5, 7),
+                                   (4, 64, 64)])
+def test_b4s_suffix_scan(dev, points, A, H, S):
+    """B4s against its plain loop over (A, H, S) buckets with identity
+    lanes, read as the msm reads them: a view of (16, A, H*S + 2) (tiles of
+    the layout pass cut by H and S); on lane 0 the buckets P and -P take
+    acc through the identity."""
+    p, q = points[0], points[1]
+    idx = np.random.default_rng(A * H * S).integers(0, 1000, size=A * (H * S + 2))
+    full = PointBatch(*(c[:, idx].reshape(16, A, H * S + 2)
+                        for c in (p if S % 2 else q)))
+    if S > 1:  # lane 0: P at step S-1, -P at step S-2
+        pt = PointBatch(*(coord[:, :1] for coord in p))
+        for coord, pos, neg in zip(full, pt, vesta.neg(pt)):
+            coord[:, 0, S - 1], coord[:, 0, S - 2] = pos[:, 0], neg[:, 0]
+
+    def buckets(x):
+        return PointBatch(*(coord[..., :H * S].reshape(16, A, H, S) for coord in x))
+
+    before = cp.padd_suffix_scan.launches
+    got = cp.padd_suffix_scan(buckets(_on(full, dev)))
+    assert cp.padd_suffix_scan.launches == before + 1
+    want = cp.suffix_scan_plain(buckets(full))
+    for g, w in zip(got, want):
+        _equal(g, w)
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("nw,c,n", [(1, 1, 1), (3, 2, 5), (20, 13, 4),
+                                    (4, 3, 70)])
+def test_b6h_horner(dev, points, group, nw, c, n):
+    """B6h against its plain loop, one thread or a group of four per lane;
+    n = 5 and 70 leave a ragged warp at the group of four."""
+    p, q = points[0], points[1]
+    idx = np.random.default_rng(nw * n + c).integers(0, 1000, size=nw * n)
+    ws = PointBatch(*(coord[:, idx].reshape(16, nw, n)
+                      for coord in (q if c % 2 else p)))
+    before = cp.pdouble_horner.launches
+    got = cp.pdouble_horner(_on(ws, dev), c, group=group)
+    assert cp.pdouble_horner.launches == before + 1
+    _equal(got, cp.horner_plain(ws, c))
 
 
 def _mask(kind, n, seed):

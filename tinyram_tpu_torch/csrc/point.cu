@@ -5,12 +5,12 @@
 // version's, limb for limb.  See curve/cuda_point.py for what bounds them
 // and what the design does about it.
 //
-// B4 (padd) and B6 (pdouble): one lane per thread, the formulas step for
-// step with the 64-bit-sum field functions of field.cuh.  B3 and B5 in
-// every form (the one-step selects, the bucket scan, the double-and-add
-// ladder) run one lane per thread with the carry-chain field functions, cut
-// the formulas into stages of independent products, and run their
-// sequential loop inside the kernel.
+// Every kernel runs the carry-chain field functions of field.cuh (*_cc),
+// cuts the formulas into stages of independent products, and runs its
+// sequential loop, where it has one, inside the kernel with the point in
+// registers: the bucket scan (B3s), the double-and-add ladder (B5l), the
+// weighted reduce's suffix scan (B4s), the doubling chains (B6 with a
+// count) and the window combine (B6h).
 #include "field.cuh"
 
 namespace {
@@ -19,21 +19,7 @@ using tr::Fe;
 using U = uint32_t;
 constexpr int Q = 1;  // Fq
 
-// ------------------------------------------------------ arithmetic policies
-
-struct Cios64 {  // B4, B6
-  static __device__ __forceinline__ Fe M(const Fe& a, const Fe& b) {
-    return tr::mont_mul<Q>(a, b);
-  }
-  static __device__ __forceinline__ Fe A(const Fe& a, const Fe& b) {
-    return tr::add_mod<Q>(a, b);
-  }
-  static __device__ __forceinline__ Fe S(const Fe& a, const Fe& b) {
-    return tr::sub_mod<Q>(a, b);
-  }
-};
-
-struct Chain {  // B3, B5
+struct Chain {  // the carry-chain field functions over Fq
   static __device__ __forceinline__ Fe M(const Fe& a, const Fe& b) {
     return tr::mont_mul_cc<Q>(a, b);
   }
@@ -44,96 +30,40 @@ struct Chain {  // B3, B5
     return tr::sub_mod_cc<Q>(a, b);
   }
 };
+using C = Chain;
 
 // t * 15 (b = 5, 3b = 15) as 16t - t
-template <class Ar>
 __device__ __forceinline__ Fe mul_by_3b(const Fe& t) {
-  const Fe t2 = Ar::A(t, t);
-  const Fe t4 = Ar::A(t2, t2);
-  const Fe t8 = Ar::A(t4, t4);
-  const Fe t16 = Ar::A(t8, t8);
-  return Ar::S(t16, t);
+  const Fe t2 = C::A(t, t);
+  const Fe t4 = C::A(t2, t2);
+  const Fe t8 = C::A(t4, t4);
+  const Fe t16 = C::A(t8, t8);
+  return C::S(t16, t);
 }
 
-// ------------------------------------------- B4, B6: the formulas in order
-
-// RCB16 Algorithm 7: complete projective addition.
-template <class Ar>
-__device__ __forceinline__ void add_body(const Fe& X1, const Fe& Y1,
-                                         const Fe& Z1, const Fe& X2,
-                                         const Fe& Y2, const Fe& Z2, Fe& X3,
-                                         Fe& Y3, Fe& Z3) {
-  Fe t0 = Ar::M(X1, X2);
-  Fe t1 = Ar::M(Y1, Y2);
-  Fe t2 = Ar::M(Z1, Z2);
-  Fe t3 = Ar::A(X1, Y1);
-  Fe t4 = Ar::A(X2, Y2);
-  t3 = Ar::M(t3, t4);
-  t4 = Ar::A(t0, t1);
-  t3 = Ar::S(t3, t4);
-  t4 = Ar::A(Y1, Z1);
-  X3 = Ar::A(Y2, Z2);
-  t4 = Ar::M(t4, X3);
-  X3 = Ar::A(t1, t2);
-  t4 = Ar::S(t4, X3);
-  X3 = Ar::A(X1, Z1);
-  Y3 = Ar::A(X2, Z2);
-  X3 = Ar::M(X3, Y3);
-  Y3 = Ar::A(t0, t2);
-  Y3 = Ar::S(X3, Y3);
-  X3 = Ar::A(t0, t0);
-  t0 = Ar::A(X3, t0);
-  t2 = mul_by_3b<Ar>(t2);
-  Z3 = Ar::A(t1, t2);
-  t1 = Ar::S(t1, t2);
-  Y3 = mul_by_3b<Ar>(Y3);
-  X3 = Ar::M(t4, Y3);
-  t2 = Ar::M(t3, t1);
-  X3 = Ar::S(t2, X3);
-  Y3 = Ar::M(Y3, t0);
-  t1 = Ar::M(t1, Z3);
-  Y3 = Ar::A(t1, Y3);
-  t0 = Ar::M(t0, t3);
-  Z3 = Ar::M(Z3, t4);
-  Z3 = Ar::A(Z3, t0);
-}
-
-// RCB16 Algorithm 9: exception-free doubling.
-template <class Ar>
-__device__ __forceinline__ void dbl_body(const Fe& X, const Fe& Y, const Fe& Z,
-                                         Fe& X3, Fe& Y3, Fe& Z3) {
-  Fe t0 = Ar::M(Y, Y);
-  Z3 = Ar::A(t0, t0);
-  Z3 = Ar::A(Z3, Z3);
-  Z3 = Ar::A(Z3, Z3);
-  Fe t1 = Ar::M(Y, Z);
-  Fe t2 = Ar::M(Z, Z);
-  t2 = mul_by_3b<Ar>(t2);
-  X3 = Ar::M(t2, Z3);
-  Y3 = Ar::A(t0, t2);
-  Z3 = Ar::M(t1, Z3);
-  t1 = Ar::A(t2, t2);
-  t2 = Ar::A(t1, t2);
-  t0 = Ar::S(t0, t2);
-  Y3 = Ar::M(t0, Y3);
-  Y3 = Ar::A(X3, Y3);
-  t1 = Ar::M(X, Y);
-  X3 = Ar::M(t0, t1);
-  X3 = Ar::A(X3, X3);
-}
-
-// ------------------------------------------------- B3, B5: staged formulas
+// ------------------------------------------------------------ the stages
 //
 // The formulas as stages of independent products (Alg. 7: 6 then 6; Alg.
 // 8: 5 then 6; Alg. 9: 4 then 4), the additions between them unchanged.
-// A stage puts its operand pairs in the lane's shared-memory slots and runs
-// its products in a loop that is not unrolled, so the code holds one
-// product per stage instead of one per product: the ladder, a doubling and
-// an add per step, fell from 11,472 SASS instructions fully unrolled to
-// 3,680, and on an H100 from 8.5 to 4.9 ms at config-2 shapes.  Two or
-// three products per iteration were slower.
+// `products<K>(st, a, b, out)` runs one stage, out[k] = a[k] * b[k], in one
+// of two ways:
+// - Slots, one thread per lane: the operand pairs go to the lane's
+//   shared-memory slots and the products run in a loop that is not
+//   unrolled, so the code holds one product per stage instead of one per
+//   product: the ladder, a doubling and an add per step, fell from 11,472
+//   SASS instructions fully unrolled to 3,680, and on an H100 from 8.5 to
+//   4.9 ms at config-2 shapes.  Two or three products per iteration were
+//   slower.  The shape for kernels with many lanes, where the card is
+//   bound by its integer pipes.
+// - Group<G>, G neighbouring threads of a warp per lane: thread r of the
+//   group computes products r, r + G, ... of the stage, and every product
+//   reaches every thread of the group by warp shuffles, so each thread
+//   keeps the whole point and repeats the additions.  A stage of K
+//   products then waits on ceil(K / G) dependent products instead of K:
+//   the shape for the window combine, whose few lanes leave the card
+//   waiting on each thread's chain of dependent products.
 
-constexpr int kBlock = 64;  // threads (one lane each) per block of B3, B5
+constexpr int kBlock = 64;  // threads per block of every point kernel
 constexpr int kSlots = 12;  // operands of the largest stage: 6 pairs
 
 // One lane's slots: slot s of the block's lane l as two uint4 at [s][0..1][l],
@@ -153,7 +83,6 @@ struct Slots {
   }
 };
 
-// out[k] = a[k] * b[k] for k < K, one product after another.
 template <int K>
 __device__ __forceinline__ void products(const Slots& s, const Fe (&a)[K],
                                          const Fe (&b)[K], Fe (&out)[K]) {
@@ -163,18 +92,53 @@ __device__ __forceinline__ void products(const Slots& s, const Fe (&a)[K],
     s.put(2 * k + 1, b[k]);
   }
 #pragma unroll 1
-  for (int k = 0; k < K; ++k) s.put(2 * k, Chain::M(s.get(2 * k), s.get(2 * k + 1)));
+  for (int k = 0; k < K; ++k) s.put(2 * k, C::M(s.get(2 * k), s.get(2 * k + 1)));
 #pragma unroll
   for (int k = 0; k < K; ++k) out[k] = s.get(2 * k);
 }
 
+// Every thread of a warp takes part in the shuffles, so a kernel over
+// groups runs no branch that depends on the lane.
+template <int G>
+struct Group {
+  static_assert(G > 1 && 32 % G == 0, "a group is a power of two in a warp");
+  int r;  // this thread's rank in its group
+};
+
+template <int K, int G>
+__device__ __forceinline__ void products(const Group<G>& g, const Fe (&a)[K],
+                                         const Fe (&b)[K], Fe (&out)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; i += G) {
+    // this thread's product of the round: i + r (ranks past the last
+    // product of a short round repeat product i)
+    Fe x = a[i], y = b[i];
+#pragma unroll
+    for (int k = i + 1; k < K && k < i + G; ++k) {
+      if (g.r == k - i) {
+        x = a[k];
+        y = b[k];
+      }
+    }
+    const Fe m = C::M(x, y);
+#pragma unroll
+    for (int k = i; k < K && k < i + G; ++k) {
+#pragma unroll
+      for (int w = 0; w < 8; ++w)
+        out[k].w[w] = __shfl_sync(0xFFFFFFFFu, m.w[w], k - i, G);
+    }
+  }
+}
+
+// ----------------------------------------------------------- the formulas
+
 // The common second stage of Algorithms 7 and 8.
-__device__ __forceinline__ void rcb_tail(const Slots& s, const Fe& t0,
+template <class St>
+__device__ __forceinline__ void rcb_tail(const St& s, const Fe& t0,
                                          const Fe& t1, const Fe& t3,
                                          const Fe& t4, const Fe& Z3a,
                                          const Fe& Y3a, Fe& X3, Fe& Y3,
                                          Fe& Z3) {
-  using C = Chain;
   Fe m[6];  // X3 = t4 Y3, t2 = t3 t1, Y3 = Y3 t0, t1 = t1 Z3, t0 = t0 t3, Z3 = Z3 t4
   products<6>(s, {t4, t3, Y3a, t1, t0, Z3a}, {Y3a, t1, t0, Z3a, t3, t4}, m);
   X3 = C::S(m[1], m[0]);
@@ -183,12 +147,12 @@ __device__ __forceinline__ void rcb_tail(const Slots& s, const Fe& t0,
 }
 
 // RCB16 Algorithm 7.
-__device__ __forceinline__ void add_lane(const Slots& s, const Fe& X1,
+template <class St>
+__device__ __forceinline__ void add_lane(const St& s, const Fe& X1,
                                          const Fe& Y1, const Fe& Z1,
                                          const Fe& X2, const Fe& Y2,
                                          const Fe& Z2, Fe& X3, Fe& Y3,
                                          Fe& Z3) {
-  using C = Chain;
   Fe m[6];
   products<6>(s, {X1, Y1, Z1, C::A(X1, Y1), C::A(Y1, Z1), C::A(X1, Z1)},
               {X2, Y2, Z2, C::A(X2, Y2), C::A(Y2, Z2), C::A(X2, Z2)}, m);
@@ -196,8 +160,8 @@ __device__ __forceinline__ void add_lane(const Slots& s, const Fe& X1,
   const Fe t4 = C::S(m[4], C::A(m[1], m[2]));
   const Fe y3 = C::S(m[5], C::A(m[0], m[2]));
   const Fe t0 = C::A(C::A(m[0], m[0]), m[0]);
-  const Fe t2 = mul_by_3b<C>(m[2]);
-  rcb_tail(s, t0, C::S(m[1], t2), t3, t4, C::A(m[1], t2), mul_by_3b<C>(y3),
+  const Fe t2 = mul_by_3b(m[2]);
+  rcb_tail(s, t0, C::S(m[1], t2), t3, t4, C::A(m[1], t2), mul_by_3b(y3),
            X3, Y3, Z3);
 }
 
@@ -206,7 +170,6 @@ __device__ __forceinline__ void madd_lane(const Slots& s, const Fe& X1,
                                           const Fe& Y1, const Fe& Z1,
                                           const Fe& X2, const Fe& Y2, Fe& X3,
                                           Fe& Y3, Fe& Z3) {
-  using C = Chain;
   Fe m[5];
   products<5>(s, {X1, Y1, C::A(X2, Y2), Y2, X2},
               {X2, Y2, C::A(X1, Y1), Z1, Z1}, m);
@@ -214,22 +177,22 @@ __device__ __forceinline__ void madd_lane(const Slots& s, const Fe& X1,
   const Fe t4 = C::A(m[3], Y1);
   const Fe y3 = C::A(m[4], X1);
   const Fe t0 = C::A(C::A(m[0], m[0]), m[0]);
-  const Fe t2 = mul_by_3b<C>(Z1);
-  rcb_tail(s, t0, C::S(m[1], t2), t3, t4, C::A(m[1], t2), mul_by_3b<C>(y3),
+  const Fe t2 = mul_by_3b(Z1);
+  rcb_tail(s, t0, C::S(m[1], t2), t3, t4, C::A(m[1], t2), mul_by_3b(y3),
            X3, Y3, Z3);
 }
 
 // RCB16 Algorithm 9.
-__device__ __forceinline__ void dbl_lane(const Slots& s, const Fe& X,
+template <class St>
+__device__ __forceinline__ void dbl_lane(const St& s, const Fe& X,
                                          const Fe& Y, const Fe& Z, Fe& X3,
                                          Fe& Y3, Fe& Z3) {
-  using C = Chain;
   Fe m[4];  // Y Y, Y Z, Z Z, X Y
   products<4>(s, {Y, Y, Z, X}, {Y, Z, Z, Y}, m);
   Fe z3 = C::A(m[0], m[0]);
   z3 = C::A(z3, z3);
   z3 = C::A(z3, z3);
-  const Fe t2 = mul_by_3b<C>(m[2]);
+  const Fe t2 = mul_by_3b(m[2]);
   const Fe y3 = C::A(m[0], t2);
   const Fe t0 = C::S(m[0], C::A(C::A(t2, t2), t2));
   Fe d[4];  // X3 = t2 Z3, Z3 = t1 Z3, Y3 = t0 Y3, X3 = t0 (X Y)
@@ -379,42 +342,185 @@ ladder_kernel(const uint8_t* __restrict__ bits, const U* __restrict__ px,
 }
 
 // B4: p + q.
-__global__ void padd_kernel(const U* __restrict__ px, const U* __restrict__ py,
-                            const U* __restrict__ pz, const U* __restrict__ qx,
-                            const U* __restrict__ qy, const U* __restrict__ qz,
-                            U* __restrict__ ox, U* __restrict__ oy,
-                            U* __restrict__ oz, int64_t n) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kBlock)
+padd_kernel(const U* __restrict__ px, const U* __restrict__ py,
+            const U* __restrict__ pz, const U* __restrict__ qx,
+            const U* __restrict__ qy, const U* __restrict__ qz,
+            U* __restrict__ ox, U* __restrict__ oy, U* __restrict__ oz,
+            int64_t n) {
+  __shared__ uint4 slots[kSlots][2][kBlock];
+  const int l = threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.x * kBlock + l;
   if (j >= n) return;
   Fe x3, y3, z3;
-  add_body<Cios64>(tr::load_fe(px, n, j), tr::load_fe(py, n, j),
-                   tr::load_fe(pz, n, j), tr::load_fe(qx, n, j),
-                   tr::load_fe(qy, n, j), tr::load_fe(qz, n, j), x3, y3, z3);
+  add_lane(Slots{slots, l}, tr::load_fe(px, n, j), tr::load_fe(py, n, j),
+           tr::load_fe(pz, n, j), tr::load_fe(qx, n, j),
+           tr::load_fe(qy, n, j), tr::load_fe(qz, n, j), x3, y3, z3);
   tr::store_fe(ox, n, j, x3);
   tr::store_fe(oy, n, j, y3);
   tr::store_fe(oz, n, j, z3);
 }
 
-// B6: 2p.
-__global__ void pdouble_kernel(const U* __restrict__ px,
-                               const U* __restrict__ py,
-                               const U* __restrict__ pz, U* __restrict__ ox,
-                               U* __restrict__ oy, U* __restrict__ oz,
-                               int64_t n) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  Fe x3, y3, z3;
-  dbl_body<Cios64>(tr::load_fe(px, n, j), tr::load_fe(py, n, j),
-                   tr::load_fe(pz, n, j), x3, y3, z3);
-  tr::store_fe(ox, n, j, x3);
-  tr::store_fe(oy, n, j, y3);
-  tr::store_fe(oz, n, j, z3);
+// B4s's layout pass: one coordinate of the buckets, (16, A, H, S) with
+// limb stride sl, stride sa between the A blocks of H lanes and each lane's
+// S steps contiguous, to step-major (S, 16, A*H), through 32 x 32 tiles in
+// shared memory so that a warp's reads and its writes are both contiguous.
+// Grid: x = (limb, block, tile of H), y = tile of S.
+constexpr int kTile = 32;
+constexpr int kTileRows = 8;  // threads per tile column
+
+__global__ void __launch_bounds__(kTile * kTileRows)
+step_major_kernel(const U* __restrict__ b, U* __restrict__ out, int64_t A,
+                  int64_t H, int64_t S, int64_t sl, int64_t sa) {
+  __shared__ U tile[kTile][kTile + 1];
+  const int64_t tiles_h = (H + kTile - 1) / kTile;
+  const int64_t ia = blockIdx.x / tiles_h;  // limb * A + block
+  const int64_t i = ia / A, a = ia % A;
+  const int64_t h0 = (blockIdx.x % tiles_h) * kTile;
+  const int64_t s0 = (int64_t)blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int r = ty; r < kTile; r += kTileRows) {
+    const int64_t h = h0 + r, s = s0 + tx;
+    if (h < H && s < S) tile[r][tx] = b[i * sl + a * sa + h * S + s];
+  }
+  __syncthreads();
+  const int64_t n = A * H;
+#pragma unroll
+  for (int r = ty; r < kTile; r += kTileRows) {
+    const int64_t s = s0 + r, h = h0 + tx;
+    if (h < H && s < S) out[(s * 16 + i) * n + a * H + h] = tile[tx][r];
+  }
 }
 
-constexpr int kThreads = 128;  // B4, B6
+// B4's scan form B4s (the weighted reduce's suffix scan): acc = tot =
+// identity; for k = S-1 .. 0: acc = acc + b[k] (Alg. 7), then, for k >= 1,
+// tot = acc + tot (Alg. 7, acc first as in padd_select).  b* hold the steps
+// first, (S, 16, n), so a warp's loads of one step are contiguous.
+__global__ void __launch_bounds__(kBlock)
+suffix_scan_kernel(const U* __restrict__ bx, const U* __restrict__ by,
+                   const U* __restrict__ bz, U* __restrict__ ax,
+                   U* __restrict__ ay, U* __restrict__ az,
+                   U* __restrict__ tx, U* __restrict__ ty,
+                   U* __restrict__ tz, int64_t S, int64_t n) {
+  __shared__ uint4 slots[kSlots][2][kBlock];
+  const int l = threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.x * kBlock + l;
+  if (j >= n) return;
+  const Slots s{slots, l};
+  Fe AX{}, AY = tr::mont_one<Q>(), AZ{};
+  Fe TX{}, TY = tr::mont_one<Q>(), TZ{};
+  const int64_t step = 16 * n;
+#pragma unroll 1
+  for (int64_t k = S - 1; k >= 0; --k) {
+    Fe x3, y3, z3;
+    add_lane(s, AX, AY, AZ, tr::load_fe(bx + k * step, n, j),
+             tr::load_fe(by + k * step, n, j),
+             tr::load_fe(bz + k * step, n, j), x3, y3, z3);
+    AX = x3;
+    AY = y3;
+    AZ = z3;
+    if (k >= 1) {
+      add_lane(s, AX, AY, AZ, TX, TY, TZ, x3, y3, z3);
+      TX = x3;
+      TY = y3;
+      TZ = z3;
+    }
+  }
+  tr::store_fe(ax, n, j, AX);
+  tr::store_fe(ay, n, j, AY);
+  tr::store_fe(az, n, j, AZ);
+  tr::store_fe(tx, n, j, TX);
+  tr::store_fe(ty, n, j, TY);
+  tr::store_fe(tz, n, j, TZ);
+}
 
-unsigned blocks(int64_t n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+// B6 with a count: `times` doublings (Alg. 9) of p, in registers.
+__global__ void __launch_bounds__(kBlock)
+pdouble_kernel(const U* __restrict__ px, const U* __restrict__ py,
+               const U* __restrict__ pz, U* __restrict__ ox,
+               U* __restrict__ oy, U* __restrict__ oz, int64_t times,
+               int64_t n) {
+  __shared__ uint4 slots[kSlots][2][kBlock];
+  const int l = threadIdx.x;
+  const int64_t j = (int64_t)blockIdx.x * kBlock + l;
+  if (j >= n) return;
+  const Slots s{slots, l};
+  Fe X = tr::load_fe(px, n, j);
+  Fe Y = tr::load_fe(py, n, j);
+  Fe Z = tr::load_fe(pz, n, j);
+#pragma unroll 1
+  for (int64_t r = 0; r < times; ++r) {
+    Fe x3, y3, z3;
+    dbl_lane(s, X, Y, Z, x3, y3, z3);
+    X = x3;
+    Y = y3;
+    Z = z3;
+  }
+  tr::store_fe(ox, n, j, X);
+  tr::store_fe(oy, n, j, Y);
+  tr::store_fe(oz, n, j, Z);
+}
+
+// One lane of B6h: acc = identity; for w = nw-1 .. 0: acc = 2^c acc (c
+// times Alg. 9), then acc = acc + S_w (Alg. 7).  s* hold S as (16, nw, n).
+template <class St>
+__device__ __forceinline__ void horner_lane(
+    const St& st, const U* __restrict__ sx, const U* __restrict__ sy,
+    const U* __restrict__ sz, int64_t c, int64_t nw, int64_t n, int64_t j,
+    Fe& X, Fe& Y, Fe& Z) {
+  X = Fe{};
+  Y = tr::mont_one<Q>();
+  Z = Fe{};
+  const int64_t limb = nw * n;  // from one limb of S to the next
+#pragma unroll 1
+  for (int64_t w = nw - 1; w >= 0; --w) {
+    Fe x3, y3, z3;
+#pragma unroll 1
+    for (int64_t d = 0; d < c; ++d) {
+      dbl_lane(st, X, Y, Z, x3, y3, z3);
+      X = x3;
+      Y = y3;
+      Z = z3;
+    }
+    add_lane(st, X, Y, Z, tr::load_fe(sx + w * n, limb, j),
+             tr::load_fe(sy + w * n, limb, j),
+             tr::load_fe(sz + w * n, limb, j), x3, y3, z3);
+    X = x3;
+    Y = y3;
+    Z = z3;
+  }
+}
+
+// B6's Horner form B6h (the window combine), one lane per G threads: G = 1
+// stages its products through the lane's slots, G > 1 through a group.
+template <int G>
+__global__ void __launch_bounds__(kBlock)
+horner_kernel(const U* __restrict__ sx, const U* __restrict__ sy,
+              const U* __restrict__ sz, U* __restrict__ ox,
+              U* __restrict__ oy, U* __restrict__ oz, int64_t c, int64_t nw,
+              int64_t n) {
+  const int64_t j = ((int64_t)blockIdx.x * kBlock + threadIdx.x) / G;
+  Fe X, Y, Z;
+  if constexpr (G == 1) {
+    __shared__ uint4 slots[kSlots][2][kBlock];
+    if (j >= n) return;
+    horner_lane(Slots{slots, (int)threadIdx.x}, sx, sy, sz, c, nw, n, j, X,
+                Y, Z);
+  } else {
+    // the ragged edge's spare threads run the last lane again (they take
+    // part in the shuffles) and store nothing
+    horner_lane(Group<G>{(int)(threadIdx.x % G)}, sx, sy, sz, c, nw, n,
+                j < n ? j : n - 1, X, Y, Z);
+    if (j >= n || threadIdx.x % G != 0) return;
+  }
+  tr::store_fe(ox, n, j, X);
+  tr::store_fe(oy, n, j, Y);
+  tr::store_fe(oz, n, j, Z);
+}
+
+unsigned blocks(int64_t threads) {
+  return (unsigned)((threads + kBlock - 1) / kBlock);
 }
 
 cudaStream_t as_stream(void* stream) {
@@ -431,7 +537,7 @@ extern "C" int tr_madd_select_scan(const void* same, const void* ax,
                                    const void* qx, const void* qy, void* ox,
                                    void* oy, void* oz, int64_t L, int64_t n,
                                    void* stream) {
-  madd_scan_kernel<<<blocks(n, kBlock), kBlock, 0, as_stream(stream)>>>(
+  madd_scan_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
       static_cast<const uint8_t*>(same), in(ax), in(ay), in(az), in(qx),
       in(qy), out(ox), out(oy), out(oz), L, n);
   return (int)cudaGetLastError();
@@ -441,7 +547,7 @@ extern "C" int tr_padd_select(const void* mask, const void* px, const void* py,
                               const void* pz, const void* qx, const void* qy,
                               const void* qz, void* ox, void* oy, void* oz,
                               int64_t n, void* stream) {
-  padd_select_kernel<<<blocks(n, kBlock), kBlock, 0, as_stream(stream)>>>(
+  padd_select_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
       static_cast<const uint8_t*>(mask), in(px), in(py), in(pz), in(qx),
       in(qy), in(qz), out(ox), out(oy), out(oz), n);
   return (int)cudaGetLastError();
@@ -451,7 +557,7 @@ extern "C" int tr_padd_select_ladder(const void* bits, const void* px,
                                      const void* py, const void* pz, void* ox,
                                      void* oy, void* oz, int64_t R, int64_t n,
                                      void* stream) {
-  ladder_kernel<<<blocks(n, kBlock), kBlock, 0, as_stream(stream)>>>(
+  ladder_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
       static_cast<const uint8_t*>(bits), in(px), in(py), in(pz), out(ox),
       out(oy), out(oz), R, n);
   return (int)cudaGetLastError();
@@ -460,16 +566,59 @@ extern "C" int tr_padd_select_ladder(const void* bits, const void* px,
 extern "C" int tr_padd(const void* px, const void* py, const void* pz,
                        const void* qx, const void* qy, const void* qz,
                        void* ox, void* oy, void* oz, int64_t n, void* stream) {
-  padd_kernel<<<blocks(n, kThreads), kThreads, 0, as_stream(stream)>>>(
+  padd_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
       in(px), in(py), in(pz), in(qx), in(qy), in(qz), out(ox), out(oy),
       out(oz), n);
   return (int)cudaGetLastError();
 }
 
+// b*: (16, n / H, H, S) at limb stride sl and block stride sa, each lane's
+// steps contiguous; scratch: 3 * S * 16 * n words for their step-major copy.
+extern "C" int tr_padd_suffix_scan(const void* bx, const void* by,
+                                   const void* bz, void* scratch, void* ax,
+                                   void* ay, void* az, void* tx, void* ty,
+                                   void* tz, int64_t S, int64_t H, int64_t sl,
+                                   int64_t sa, int64_t n, void* stream) {
+  const int64_t A = n / H;
+  const dim3 grid((unsigned)(16 * A * ((H + kTile - 1) / kTile)),
+                  (unsigned)((S + kTile - 1) / kTile));
+  const dim3 block(kTile, kTileRows);
+  U* steps[3];
+  const void* src[3] = {bx, by, bz};
+  for (int k = 0; k < 3; ++k) {
+    steps[k] = out(scratch) + k * S * 16 * n;
+    if (S == 0) continue;  // no steps: both sums stay the identity
+    step_major_kernel<<<grid, block, 0, as_stream(stream)>>>(
+        in(src[k]), steps[k], A, H, S, sl, sa);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  suffix_scan_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
+      steps[0], steps[1], steps[2], out(ax), out(ay), out(az), out(tx),
+      out(ty), out(tz), S, n);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int tr_pdouble(const void* px, const void* py, const void* pz,
-                          void* ox, void* oy, void* oz, int64_t n,
-                          void* stream) {
-  pdouble_kernel<<<blocks(n, kThreads), kThreads, 0, as_stream(stream)>>>(
-      in(px), in(py), in(pz), out(ox), out(oy), out(oz), n);
+                          void* ox, void* oy, void* oz, int64_t times,
+                          int64_t n, void* stream) {
+  pdouble_kernel<<<blocks(n), kBlock, 0, as_stream(stream)>>>(
+      in(px), in(py), in(pz), out(ox), out(oy), out(oz), times, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tr_pdouble_horner(const void* sx, const void* sy,
+                                 const void* sz, void* ox, void* oy, void* oz,
+                                 int64_t c, int64_t nw, int group, int64_t n,
+                                 void* stream) {
+  if (group == 1) {
+    horner_kernel<1><<<blocks(n), kBlock, 0, as_stream(stream)>>>(
+        in(sx), in(sy), in(sz), out(ox), out(oy), out(oz), c, nw, n);
+  } else if (group == 4) {
+    horner_kernel<4><<<blocks(4 * n), kBlock, 0, as_stream(stream)>>>(
+        in(sx), in(sy), in(sz), out(ox), out(oy), out(oz), c, nw, n);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

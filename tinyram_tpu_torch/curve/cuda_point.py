@@ -6,40 +6,55 @@ Replace the Pallas kernels of `tinyram_tpu/curve/pallas_point.py`:
      (qx, qy, 1)), RCB16 Algorithm 8 — the MSM bucket scan's step;
   B4 `padd` (`_padd_call`): complete add, RCB16 Algorithm 7;
   B5 `padd_select` (`_padd_select_call`): select(mask, p + q, q);
-  B6 `pdouble` (`_pdouble_call`): doubling, RCB16 Algorithm 9.
+  B6 `pdouble` (`_pdouble_call`): doubling, RCB16 Algorithm 9, `times` of
+     them in one launch (the MSM's doubling chains).
 
-and two forms that run the JAX package's `lax.scan` over B3 and B5 inside one
-launch (`tinyram_tpu/curve/msm.py`: the bucket scan at 412-419, the
-bit-serial ladder at 693-698 and 714-718):
+and four forms that run a loop of `tinyram_tpu/curve/msm.py` inside one
+launch: the bucket scan's `lax.scan` (412-419), the bit-serial ladder's
+(693-698 and 714-718), the weighted reduce's suffix scan (524-534) and the
+window combine's `fori_loop` (600-621):
 
   B3s `padd_select_mixed_scan`: L steps of B3 from the identity, every
       step's accumulator returned;
   B5l `padd_select_ladder`: R steps of acc = 2·acc (B6's Algorithm 9), then
-      acc = select(bit, p + acc, acc) (B5's Algorithm 7), from the identity.
+      acc = select(bit, p + acc, acc) (B5's Algorithm 7), from the identity;
+  B4s `padd_suffix_scan`: S steps over the last batch axis, from the last
+      down: acc = acc + b_j, then tot = acc + tot for j >= 1 (two B4 adds);
+  B6h `pdouble_horner`: Horner over the windows, c doublings and one add
+      per window.
 
 Each wrapper takes `(16, *batch)` int32 Fq limb tensors (Montgomery form)
-and a bool mask shaped like the batch.  A CUDA tensor goes to its kernel in
-`csrc/point.cu`, a CPU tensor to its plain version: the level-batched formula of
-`vesta.py` over `FQ_PLAIN` (same limbs: every field op is canonical),
-with the selects computing their sums on the selected lanes only; the two
-forms' plain versions are the Python loops over the one-step ones.
+and, for the selects, a bool mask shaped like the batch.  A CUDA tensor
+goes to its kernel in `csrc/point.cu`, a CPU tensor to its plain version:
+the level-batched formula of `vesta.py` over `FQ_PLAIN` (same limbs: every
+field op is canonical), with the selects computing their sums on the
+selected lanes only; the forms' plain versions (and B6's with a count) are
+the Python loops over the one-step ones.
 
 Source note (the kernels, over `csrc/field.cuh`).  A complete add is 12
 Montgomery products against 9 × 64 B of device traffic, so the kernels are
-bound by the integer pipes once more than a few lanes in a warp add.  B4
-and B6 run one lane per thread with the 64-bit-sum field functions, the
-formulas step for step.  B3 and B5, in every form, run one lane per thread
-with the carry-chain field functions (PTX add.cc/madc, p's zero words
-skipped), and run each formula as stages of independent products whose
-loop is not unrolled: the code holds one product per stage, and the
-ladder, unrolled, was three times as long and 1.5 times as slow.  Their
-forms keep the accumulator in registers across steps: the scan stages
-each step's q into shared memory by cp.async while the previous step
-computes, and the ladder reads its point once.  So the MSM's two
-sequential loops cost one launch each, not one per step, and no step
-sends the accumulator through device memory.  What still bounds them is
-the dependent carry chain of one product per thread: at 2^15 lanes a
-scheduler holds two warps.
+bound by the integer pipes once more than a few lanes in a warp add.  Every
+kernel runs the carry-chain field functions (PTX add.cc/madc, p's zero
+words skipped) and runs each formula as stages of independent products.
+Where the lanes are many (every kernel but B6h) a thread holds one lane and
+a stage's products run in a loop that is not unrolled: the code holds one
+product per stage, and the ladder, unrolled, was three times as long and
+1.5 times as slow.  The forms keep the accumulator in registers across
+steps: the scan stages each step's q into shared memory by cp.async while
+the previous step computes, the ladder reads its point once, the suffix
+scan reads each bucket once (a tiled transpose in the same entry point
+first lays the buckets out step-major, so that a warp's loads of one step
+are contiguous: torch's own permute copy took 8 of a 13.5 ms call), and
+B6 with a count and B6h read their point or window sum once.  So each of
+the MSM's sequential loops costs one launch, not one per step, and no
+step sends the accumulator through device memory.  What bounds the wide
+kernels is the dependent carry chain of one product per thread: at 2^15
+lanes a scheduler holds two warps.  The window combine runs on 4-64 lanes
+(one per MSM column), so there the card waits on each lane's chain of
+2,320 dependent products: B6h spreads each stage's products over a group
+of `HORNER_GROUP` threads per lane that exchange them by warp shuffles,
+which cuts the chain to 600 products (2.95 times faster than one thread
+per lane on an H100; `group=1` is kept to measure one product's latency).
 """
 
 from __future__ import annotations
@@ -51,6 +66,8 @@ from ..field.field import FQ_PLAIN
 from ..field.params import N_LIMBS
 from . import vesta
 from .vesta import PointBatch
+
+HORNER_GROUP = 4  # threads per lane of B6h (1 or 4; see PERF.md)
 
 
 def _flat(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -78,7 +95,8 @@ def _u8(mask: torch.Tensor, n: int, device) -> torch.Tensor:
 
 def _run(name, wrapper, device, tensors, *sizes):
     """Launch `name` on `tensors` (None passes a null pointer); the list
-    keeps any temporary copies alive until the launch is issued."""
+    keeps any temporary copies alive until the launch is issued.  The last
+    of `sizes` is the lane count."""
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     lib = kernels.library()
     wrapper.launches += 1
@@ -87,8 +105,9 @@ def _run(name, wrapper, device, tensors, *sizes):
     )
 
 
-def _launch(name, wrapper, mask, ins, batch_shape):
-    """Flatten, allocate the three outputs, launch `name`, unflatten."""
+def _launch(name, wrapper, mask, ins, batch_shape, *sizes):
+    """Flatten, allocate the three outputs, launch `name` (with `sizes`
+    before the lane count), unflatten."""
     device = ins[0].device
     _check(ins, device)
     n = _lanes(batch_shape)
@@ -97,7 +116,7 @@ def _launch(name, wrapper, mask, ins, batch_shape):
     if n:
         ts = [] if mask is None else [_u8(mask, n, device)]
         ts += [_flat(t, n) for t in ins] + outs
-        _run(name, wrapper, device, ts, n)
+        _run(name, wrapper, device, ts, *sizes, n)
     return PointBatch(*(o.reshape((N_LIMBS,) + batch_shape) for o in outs))
 
 
@@ -155,8 +174,11 @@ def padd_select_plain(mask, p: PointBatch, q: PointBatch) -> PointBatch:
         _take(p, idx, n), _take(q, idx, n), FQ_PLAIN))
 
 
-def pdouble_plain(p: PointBatch) -> PointBatch:
-    return vesta.double(p, FQ_PLAIN)
+def pdouble_plain(p: PointBatch, times: int = 1) -> PointBatch:
+    """B6's plain version: the loop of `times` doublings."""
+    for _ in range(times):
+        p = vesta.double(p, FQ_PLAIN)
+    return p
 
 
 def madd_select_scan_plain(same, sx, sy) -> PointBatch:
@@ -170,6 +192,28 @@ def madd_select_scan_plain(same, sx, sy) -> PointBatch:
         for coord, val in zip(ys, acc):
             coord[s] = val
     return PointBatch(*ys)
+
+
+def suffix_scan_plain(b: PointBatch):
+    """B4s's plain version: the loop of `padd_plain` steps."""
+    batch = tuple(b.x.shape[1:-1])
+    acc = vesta.identity(batch, b.x.device)
+    tot = vesta.identity(batch, b.x.device)
+    for j in range(b.x.shape[-1] - 1, -1, -1):
+        acc = padd_plain(acc, PointBatch(*(c[..., j] for c in b)))
+        if j >= 1:
+            tot = padd_plain(acc, tot)
+    return acc, tot
+
+
+def horner_plain(window_sums: PointBatch, c: int) -> PointBatch:
+    """B6h's plain version: the loop of `pdouble_plain` and `padd_plain`
+    steps."""
+    acc = vesta.identity(tuple(window_sums.x.shape[2:]), window_sums.x.device)
+    for w in range(window_sums.x.shape[1] - 1, -1, -1):
+        acc = padd_plain(pdouble_plain(acc, c),
+                         PointBatch(*(coord[:, w] for coord in window_sums)))
+    return acc
 
 
 def ladder_plain(bits, p: PointBatch) -> PointBatch:
@@ -212,6 +256,36 @@ def padd(p: PointBatch, q: PointBatch) -> PointBatch:
     return _launch("tr_padd", padd, None, [*p, *q], tuple(p.x.shape[1:]))
 
 
+def padd_suffix_scan(b: PointBatch):
+    """B4s: acc = tot = identity; for j = S-1 .. 0: acc = B4(acc, b[..., j]),
+    then, for j >= 1, tot = B4(acc, tot).  b has batch (*lanes, S); returns
+    (acc, tot), each of batch `lanes`: acc = Σ_j b_j, tot = Σ_j j·b_j."""
+    if b.x.device.type == "cpu":
+        return suffix_scan_plain(b)
+    device = b.x.device
+    _check(list(b), device)
+    *batch, S = b.x.shape[1:]
+    batch = tuple(batch)
+    n = _lanes(batch)
+    outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
+            for _ in range(6)]
+    if n:
+        # the kernel reads (16, n / H, H, S) views whose lanes hold their
+        # steps contiguously (the msm's buckets, without a copy)
+        H = batch[-1] if batch else 1
+        ts = [c.reshape(N_LIMBS, n // H, H, S) for c in b]
+        if any(t.stride() != ts[0].stride() or t.stride(3) != 1
+               or t.stride(2) != S for t in ts):
+            ts = [t.contiguous() for t in ts]
+        scratch = torch.empty((3, S, N_LIMBS, n), dtype=torch.int32,
+                              device=device)
+        _run("tr_padd_suffix_scan", padd_suffix_scan, device,
+             ts + [scratch] + outs, S, H, ts[0].stride(0), ts[0].stride(1), n)
+    acc, tot = (PointBatch(*(o.reshape((N_LIMBS,) + batch) for o in part))
+                for part in (outs[:3], outs[3:]))
+    return acc, tot
+
+
 def padd_select(mask, p: PointBatch, q: PointBatch) -> PointBatch:
     """B5: select(mask, p + q, q)."""
     if p.x.device.type == "cpu":
@@ -240,14 +314,39 @@ def padd_select_ladder(bits, p: PointBatch) -> PointBatch:
     return PointBatch(*(o.reshape((N_LIMBS,) + batch) for o in outs))
 
 
-def pdouble(p: PointBatch) -> PointBatch:
-    """B6: exception-free doubling."""
+def pdouble(p: PointBatch, times: int = 1) -> PointBatch:
+    """B6: `times` exception-free doublings in one launch."""
     if p.x.device.type == "cpu":
-        return pdouble_plain(p)
-    return _launch("tr_pdouble", pdouble, None, [*p], tuple(p.x.shape[1:]))
+        return pdouble_plain(p, times)
+    if times == 0:
+        return p
+    return _launch("tr_pdouble", pdouble, None, [*p], tuple(p.x.shape[1:]),
+                   times)
+
+
+def pdouble_horner(window_sums: PointBatch, c: int,
+                   group: int = HORNER_GROUP) -> PointBatch:
+    """B6h: Σ_w 2^{cw} S_w by Horner, acc = identity; for w = nw-1 .. 0:
+    acc = B4(B6(acc, times=c), S_w).  window_sums has batch (nw, *rest);
+    returns batch `rest`.  `group` threads run each lane (1 or 4)."""
+    if window_sums.x.device.type == "cpu":
+        return horner_plain(window_sums, c)
+    device = window_sums.x.device
+    _check(list(window_sums), device)
+    nw = window_sums.x.shape[1]
+    batch = tuple(window_sums.x.shape[2:])
+    n = _lanes(batch)
+    outs = [torch.empty((N_LIMBS, n), dtype=torch.int32, device=device)
+            for _ in range(3)]
+    if n:
+        ts = [s.reshape(N_LIMBS, nw, n).contiguous() for s in window_sums]
+        _run("tr_pdouble_horner", pdouble_horner, device, ts + outs, c, nw,
+             group, n)
+    return PointBatch(*(o.reshape((N_LIMBS,) + batch) for o in outs))
 
 
 for _id, _w in (("B3", padd_select_mixed), ("B3s", padd_select_mixed_scan),
-                ("B4", padd), ("B5", padd_select), ("B5l", padd_select_ladder),
-                ("B6", pdouble)):
+                ("B4", padd), ("B4s", padd_suffix_scan), ("B5", padd_select),
+                ("B5l", padd_select_ladder), ("B6", pdouble),
+                ("B6h", pdouble_horner)):
     kernels.register(_id, _w)

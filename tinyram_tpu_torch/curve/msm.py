@@ -1,4 +1,5 @@
-"""Pippenger multi-scalar multiplication (PyTorch; kernels B3-B6).
+"""Pippenger multi-scalar multiplication (PyTorch; kernels B3-B6 and their
+loop forms).
 
 Port of `tinyram_tpu/curve/msm.py`, same algorithm:
 
@@ -12,13 +13,18 @@ Port of `tinyram_tpu/curve/msm.py`, same algorithm:
      boundaries, and kernel B4 adds each chunk's incoming carry;
   4. segment-end rows land in their buckets (exactly one row per bucket);
   5. the bucket-weighted reduction Σ d·B_d splits d = hi·S + lo: a serial
-     suffix scan over lo (B4, B5), log-depth combines over hi (B4, B6);
-  6. Horner over the windows with c doublings per step (B6, B4).
+     suffix scan over lo (one launch of kernel B4s, two adds per step),
+     log-depth combines over hi (B4) and the doubling chains (one launch
+     of B6 with a count each);
+  6. Horner over the windows, c doublings and one add per window (one
+     launch of kernel B6h).
 
 Up to 2^15 lanes a bit-serial double-and-add replaces it: one launch of
-kernel B5l (B6 then B5 per bit).  The reference's two `lax.scan` loops
-(bucket scan, ladder) run inside those kernels; its `fori_loop` bodies are
-Python loops of kernel launches here.  The reference's environment knobs
+kernel B5l (B6 then B5 per bit).  The reference's sequential loops (the
+bucket scan, the ladder, the suffix scan, the window combine's
+`fori_loop` and the doubling chains) run inside those kernels; the
+log-depth trees and the carry fixup are Python loops of one-step launches
+(B4, B5), one per level.  The reference's environment knobs
 are keyword arguments with the same defaults (`window_bits`, `group_log2`,
 `lanes_log2`); its opt-in batched-affine scan is not ported.
 """
@@ -33,7 +39,8 @@ from ..field.field import FQ
 from ..field.params import N_LIMBS
 from . import vesta
 from .cuda_point import (padd, padd_select, padd_select_ladder,
-                         padd_select_mixed_scan, pdouble)
+                         padd_select_mixed_scan, padd_suffix_scan, pdouble,
+                         pdouble_horner)
 from .vesta import PointBatch
 
 SCALAR_BITS = 16 * N_LIMBS  # 256
@@ -262,27 +269,18 @@ def _suffix_weighted(T: PointBatch) -> PointBatch:
 
 def _weighted_bucket_reduce_inner(buckets: PointBatch, c: int) -> PointBatch:
     """Σ_{d=1}^{2^c - 1} d · B_d for all windows at once -> batch (W,)."""
-    dev = buckets.x.device
     nw = buckets.x.shape[1]
     n_buckets = 1 << c
     s_lo = c // 2
     S = 1 << s_lo
     H = n_buckets // S
     shape = (N_LIMBS, nw, H, S)
-    b = [coord[..., :n_buckets].reshape(shape) for coord in buckets]
     # serial suffix scan over lo: acc_j = Σ_{lo≥j} B;  U += acc_j for j≥1
-    acc = vesta.identity((nw, H), dev)
-    tot = vesta.identity((nw, H), dev)
-    take = torch.ones((nw, H), dtype=torch.bool, device=dev)
-    for j in range(S - 1, -1, -1):
-        acc = padd(acc, PointBatch(*(coord[..., j] for coord in b)))
-        if j >= 1:  # the reference's select(j >= 1, acc + tot, tot)
-            tot = padd_select(take, acc, tot)
+    acc, tot = padd_suffix_scan(PointBatch(
+        *(coord[..., :n_buckets].reshape(shape) for coord in buckets)))
     X = _suffix_weighted(acc)
     Y = _tree_reduce_last(tot)
-    for _ in range(s_lo):
-        X = pdouble(X)
-    return padd(X, Y)
+    return padd(pdouble(X, times=s_lo), Y)
 
 
 def _weighted_bucket_reduce_signed(buckets: PointBatch, c: int) -> PointBatch:
@@ -291,21 +289,12 @@ def _weighted_bucket_reduce_signed(buckets: PointBatch, c: int) -> PointBatch:
     half = 1 << half_bits
     main = _weighted_bucket_reduce_inner(buckets, half_bits)
     top = PointBatch(*(coord[..., half] for coord in buckets))
-    for _ in range(half_bits):
-        top = pdouble(top)
-    return padd(main, top)
+    return padd(main, pdouble(top, times=half_bits))
 
 
 def _combine_windows(window_sums: PointBatch, c: int) -> PointBatch:
     """Horner: Σ_w 2^{cw} S_w over batch (W, *rest) -> (*rest)."""
-    nw = window_sums.x.shape[1]
-    acc = vesta.identity(window_sums.x.shape[2:], window_sums.x.device)
-    for i in range(nw):
-        w = nw - 1 - i
-        for _ in range(c):
-            acc = pdouble(acc)
-        acc = padd(acc, PointBatch(*(coord[:, w] for coord in window_sums)))
-    return acc
+    return pdouble_horner(window_sums, c)
 
 
 def _bucket_sums_all(digits, signs, points: PointBatch, c: int,

@@ -113,13 +113,20 @@ _SIGNATURES = {
     "tr_madd_select_scan": [_VP] * 9 + [_I64, _I64, _VP],
     # B4: p + q    (px, py, pz, qx, qy, qz, ox, oy, oz, n, stream)
     "tr_padd": [_VP] * 9 + [_I64, _VP],
+    # B4s: S steps from the last: acc += b[s]; tot = acc + tot for s >= 1
+    #     (bx, by, bz, scratch, acc*, tot*, S, H, sl, sa, n, stream), b
+    #     (16, n / H, H, S) at limb stride sl and block stride sa
+    "tr_padd_suffix_scan": [_VP] * 10 + [_I64] * 5 + [_VP],
     # B5: select(mask, p + q, q)   (mask, p*, q*, o*, n, stream)
     "tr_padd_select": [_VP] * 10 + [_I64, _VP],
     # B5l: R steps acc = select(bits[r], p + 2acc, 2acc) from the identity
     #     (bits, px, py, pz, ox, oy, oz, R, n, stream)
     "tr_padd_select_ladder": [_VP] * 7 + [_I64, _I64, _VP],
-    # B6: 2p       (px, py, pz, ox, oy, oz, n, stream)
-    "tr_pdouble": [_VP] * 6 + [_I64, _VP],
+    # B6: 2^times p      (px, py, pz, ox, oy, oz, times, n, stream)
+    "tr_pdouble": [_VP] * 6 + [_I64, _I64, _VP],
+    # B6h: Horner, per window c doublings then + S_w, from the identity
+    #     (sx, sy, sz, ox, oy, oz, c, nw, group, n, stream), S (16, nw, n)
+    "tr_pdouble_horner": [_VP] * 6 + [_I64, _I64, _INT, _I64, _VP],
     # P1/P2: REPS chained op(x, b) per element
     #     (op, reps, a, b, out, n, stream)
     "tr_vpu_probe": [_INT, _INT, _VP, _VP, _VP, _I64, _VP],
