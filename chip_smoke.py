@@ -16,7 +16,7 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
    shapes, against their plain versions on the card (u32 ops and f32mul
    exact; f32fma rtol 1e-5 with equal infinities), with G ops/s and the
    SASS instructions of the op per chain step.
-3. Runs each kernel B1-B6 on the card at the main path's shapes and holds
+3. Runs each kernel B1-B6 on the card at config 2's shapes and holds
    it against its plain PyTorch version on the same inputs: the outputs
    must be equal limb for limb (tolerance 0: the arithmetic is exact).  So
    are the MSM's loops in one launch each: the bucket scan B3s (128 steps
@@ -54,15 +54,33 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
 10. Proves the W=8 Answer-only program on the card under the seeded random
     stream of tests/data/torch_golden_w8.npz and checks that the proof
     bytes equal the JAX package's recorded proof.
+11. BASELINE config 3 (2^16 steps of the full ISA with memory, W=24, 8
+    registers, k=17) through `tinyram.prove_config.prove_config3`, what
+    `scripts/torch_prove_config3.py --mock --prove` runs: the Python and the
+    native emulator's traces must be equal, the mock on the card must find
+    no failure, the proof must verify and answer + 1 must be rejected; the
+    launch counts are reset just before the proof and each of B1, B2, B3s,
+    B4, B4s, B5, B6, B6h must be > 0 after it (B3 0, B4s as many as B6h,
+    B6 at most two per B6h).  It runs after the config-2 phases, in the
+    same process, so its first proof is the first at k = 17 with the
+    kernels already built and loaded; its SRS (k=17) hashes, in a pool of
+    processes, the generators past config 2's 2^14.  Then every kernel of
+    that path at config 3's shapes (the widest B1 launch of its proof,
+    B2's rows of a 64-column lift to 2^19, the 64-column commit pass at
+    c = 16) against its plain version, on a seeded sample of lanes where
+    the plain version would take minutes.
 
-Prints the per-phase seconds and launch counts, the kernels' JSON line,
-and as its last line {"ok": true, "device": {...}}.  Any failure raises
-(exit code 1) before the last line; without a CUDA device it exits 1 too.
+Prints the per-phase seconds and launch counts, the kernels' JSON line
+(each kernel at config 2's shapes, its launches in one config-2 proof and,
+as "launches_config3", in one config-3 proof), and as its last line
+{"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
+the last line; without a CUDA device it exits 1 too.
 A detailed report goes to chiprun_out/chip_smoke_report.json.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import random
@@ -101,6 +119,9 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
 }
 # launched by a config-2 proof (the one-step B3 is not: B3s replaced it)
 PROOF_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B5l", "B6", "B6h")
+# launched by a config-3 proof: every MSM there is past 2^15 lanes, so none
+# takes the ladder B5l
+CONFIG3_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B6", "B6h")
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
@@ -360,25 +381,50 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def check_kernels(dev, gen, srs, funcs, listing) -> dict:
-    """B1-B6, B3s, B4s, B5l and B6h against their plain versions at the main
-    path's shapes, with the bytes and the integer instructions each call needs (by
-    pipe, from the SASS).  Kernel ms: CUDA graph replays; ms_issued: the
-    same launches issued one by one from Python, which shows where the host
-    held the kernel back."""
+def record_row(out, kid, kernel, plain, reps, plain_reps, nbytes, ops,
+               elements, plain_ms=None, pick=None, plain_lanes=None,
+               tag="kernel"):
+    """Holds kernel() against plain() on the card, times both, bounds the
+    kernel and logs the row, which goes to out[kid].  ops: the SASS Counter
+    that one of `elements` threads issues; plain_ms: the plain version's
+    time where it was measured before; pick(got): the kernel's output on
+    the `plain_lanes` lanes that a sampled plain() computes.  Kernel ms:
+    CUDA graph replays; ms_issued: the same launches issued one by one from
+    Python, which shows where the host held the kernel back."""
     import torch
 
-    import torch_point_sweep as sweep
-    from tinyram_tpu_torch.curve import cuda_point as cp
-    from tinyram_tpu_torch.curve import vesta
-    from tinyram_tpu_torch.curve.vesta import PointBatch
-    from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
-    from tinyram_tpu_torch.field.field import FP, FP_PLAIN, FQ_PLAIN
-    from tinyram_tpu_torch.poly import cuda_ntt
-    from tinyram_tpu_torch.poly.ntt import radix2_stages
     from tinyram_tpu_torch.probes import device_ms
 
-    out = {}
+    got = kernel()
+    want = plain()
+    sync()
+    err = max_abs_err(got if pick is None else pick(got), want)
+    del got, want
+    ms = device_ms(kernel, reps)
+    ms_issued = device_ms(kernel, reps, graph=False)
+    if plain_ms is None:
+        plain_ms = device_ms(plain, plain_reps, graph=False)
+    b = bound(nbytes, pipe_ms(ops, elements))
+    n_imad, n_alu = imad_count(ops) * elements, alu_count(ops) * elements
+    out[kid] = {"max_abs_err": err, "ms": ms, "ms_issued": ms_issued,
+                "plain_ms": plain_ms, "imad": n_imad, "alu": n_alu, **b}
+    on = ""
+    if plain_lanes is not None:
+        out[kid]["plain_lanes"] = plain_lanes
+        on = f" (on {plain_lanes})"
+    log(f"[{tag}] {kid} max_abs_err={err} ms={ms:.4f} (issued "
+        f"{ms_issued:.4f}) plain_ms={plain_ms:.4f}{on} bound_ms="
+        f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes / 1e6:.1f} MB, "
+        f"{n_imad / 1e6:.1f} M IMAD, {n_alu / 1e6:.1f} M ALU)")
+    torch.cuda.empty_cache()
+    if err != 0:
+        raise AssertionError(f"{kid} ({tag}) disagrees with its plain version")
+
+
+def sass_tables(funcs, listing):
+    """(each kernel's SASS opcode counts, one Montgomery product's SASS per
+    point kernel, each staged kernel's SASS per lane with its product loops
+    run out)."""
     sass = {kid: sass_of(funcs, part) for kid, part in SASS_NAME.items()}
     # the point kernels: one product's SASS and the number of product
     # loops; per lane (and step), the whole SASS with each loop run out
@@ -395,29 +441,57 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
             f"{alu_count(per_lane[kid]):.0f}")
     product["B3s"], per_lane["B3s"] = product["B3"], per_lane["B3"]
     product["B6h"] = product["B4"]
+    return sass, product, per_lane
 
-    def record(kid, kernel, plain, reps, plain_reps, nbytes, ops, elements,
-               plain_ms=None):
-        """ops: the SASS Counter that one of `elements` threads issues;
-        plain_ms: the plain version's time where it was measured before."""
-        got = kernel()
-        want = plain()
-        sync()
-        err = max_abs_err(got, want)
-        ms = device_ms(kernel, reps)
-        ms_issued = device_ms(kernel, reps, graph=False)
-        if plain_ms is None:
-            plain_ms = device_ms(plain, plain_reps, graph=False)
-        b = bound(nbytes, pipe_ms(ops, elements))
-        n_imad, n_alu = imad_count(ops) * elements, alu_count(ops) * elements
-        out[kid] = {"max_abs_err": err, "ms": ms, "ms_issued": ms_issued,
-                    "plain_ms": plain_ms, "imad": n_imad, "alu": n_alu, **b}
-        log(f"[kernel] {kid} max_abs_err={err} ms={ms:.4f} (issued "
-            f"{ms_issued:.4f}) plain_ms={plain_ms:.4f} bound_ms="
-            f"{b['bound_ms']:.4f} ({b['bound_by']}: {nbytes / 1e6:.1f} MB, "
-            f"{n_imad / 1e6:.1f} M IMAD, {n_alu / 1e6:.1f} M ALU)")
-        if err != 0:
-            raise AssertionError(f"{kid} disagrees with its plain version")
+
+def projective_points(gen, srs, lanes, dev):
+    """Two projective batches of `lanes` SRS points with random z and 5 %
+    identity lanes, and the affine (x, y) of the first."""
+    import torch
+
+    from tinyram_tpu_torch.curve.vesta import PointBatch
+    from tinyram_tpu_torch.field.field import FQ_PLAIN
+
+    idx = torch.as_tensor(gen.integers(0, srs.n, size=lanes), device=dev)
+    gx, gy = srs.g.x[:, idx], srs.g.y[:, idx]
+    ident = torch.as_tensor(gen.random(lanes) < 0.05, device=dev)
+
+    def projective(px, py):
+        z = random_limbs(gen, (lanes,), dev)
+        z[0] |= 1  # nonzero
+        X, Y = FQ_PLAIN.mul(px, z), FQ_PLAIN.mul(py, z)
+        zero = torch.zeros_like(z)
+        one = FQ_PLAIN.ones((lanes,), dev)
+        return PointBatch(FQ_PLAIN.select(ident, zero, X),
+                          FQ_PLAIN.select(ident, one, Y),
+                          FQ_PLAIN.select(ident, zero, z))
+
+    return (projective(gx, gy), projective(gx.roll(7, 1), gy.roll(7, 1)),
+            gx, gy)
+
+
+def check_kernels(dev, gen, srs, tables) -> dict:
+    """B1-B6, B3s, B4s, B5l and B6h against their plain versions at the main
+    path's shapes, with the bytes and the integer instructions each call needs (by
+    pipe, from the SASS).  Kernel ms: CUDA graph replays; ms_issued: the
+    same launches issued one by one from Python, which shows where the host
+    held the kernel back."""
+    import torch
+
+    import torch_point_sweep as sweep
+    from tinyram_tpu_torch.curve import cuda_point as cp
+    from tinyram_tpu_torch.curve import vesta
+    from tinyram_tpu_torch.curve.vesta import PointBatch
+    from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
+    from tinyram_tpu_torch.field.field import FP, FP_PLAIN
+    from tinyram_tpu_torch.poly import cuda_ntt
+    from tinyram_tpu_torch.poly.ntt import radix2_stages
+    from tinyram_tpu_torch.probes import device_ms
+
+    out = {}
+    sass, product, per_lane = tables
+
+    record = functools.partial(record_row, out)
 
     # B1 at (16, 2^18): one of the main path's wide elementwise products
     n = 1 << 18
@@ -454,22 +528,7 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
     # identity lanes mixed in.  B3 and B5 add only where the mask is set:
     # their accumulator is read and their products run on those lanes.
     lanes = 1 << 15
-    idx = torch.as_tensor(gen.integers(0, srs.n, size=lanes), device=dev)
-    gx, gy = srs.g.x[:, idx], srs.g.y[:, idx]
-    ident = torch.as_tensor(gen.random(lanes) < 0.05, device=dev)
-
-    def projective(px, py):
-        z = random_limbs(gen, (lanes,), dev)
-        z[0] |= 1  # nonzero
-        X, Y = FQ_PLAIN.mul(px, z), FQ_PLAIN.mul(py, z)
-        zero = torch.zeros_like(z)
-        one = FQ_PLAIN.ones((lanes,), dev)
-        return PointBatch(FQ_PLAIN.select(ident, zero, X),
-                          FQ_PLAIN.select(ident, one, Y),
-                          FQ_PLAIN.select(ident, zero, z))
-
-    p = projective(gx, gy)
-    q = projective(gx.roll(7, 1), gy.roll(7, 1))
+    p, q, gx, gy = projective_points(gen, srs, lanes, dev)
     mask = torch.as_tensor(gen.random(lanes) < 0.5, device=dev)
     m = int(mask.sum())
     pt = 3 * FE_BYTES
@@ -597,6 +656,187 @@ def check_kernels(dev, gen, srs, funcs, listing) -> dict:
                          "per_lane_alu": alu_count(per_lane[k])}
                      for k in per_lane}
     return out
+
+
+def device_limbs(gen, shape, dev):
+    """random_limbs made on the card from a seed drawn from `gen` (the
+    config-3 operands are GBs: too many for numpy on the host)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(gen.integers(1 << 62)))
+    t = torch.randint(0, 1 << 16, (16,) + tuple(shape), generator=g,
+                      device=dev, dtype=torch.int32)
+    t[15] &= 0x3FFF
+    return t
+
+
+def sample(gen, n, k, dev):
+    """k sorted distinct indices below n, as a tensor on `dev`."""
+    import torch
+
+    idx = gen.choice(n, size=min(k, n), replace=False)
+    return torch.as_tensor(sorted(idx), device=dev)
+
+
+def check_config3_kernels(dev, gen, srs, tables, b1_lanes: int) -> dict:
+    """B1-B6 and the loop forms at config 3's shapes: the widest B1 launch
+    of the config-3 proof, B2's two levels of a 64-column coset lift at
+    2^19, and the 64-column commit pass of 2^17 points at c = 16 (B3s over
+    the plan's 128 steps at 2^15 lanes, B4s over 1024 windows of 256 lanes
+    and 128 steps, B6h over 16 windows of 16 doublings, the doubling chains
+    of 7 and 15, B4 at the suffix doubling's 2^18 lanes and the carry
+    fixup's B4 and B5 at 2^15).  Each runs at full width on the card and is
+    held against its plain version on every lane, or, where the plain
+    version would take minutes, on a seeded sample of independent lanes,
+    rows or windows (`plain_lanes` says how many)."""
+    import torch
+
+    import torch_point_sweep as sweep
+    from tinyram_tpu_torch.curve import cuda_point as cp
+    from tinyram_tpu_torch.curve.vesta import PointBatch
+    from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
+    from tinyram_tpu_torch.field.field import FP
+    from tinyram_tpu_torch.poly import cuda_ntt
+
+    sass, product, _ = tables
+    out = {}
+    record = functools.partial(record_row, out, tag="config3 kernel")
+
+    # B1 at the widest launch of the config-3 proof
+    n = b1_lanes
+    a, b = device_limbs(gen, (n,), dev), device_limbs(gen, (n,), dev)
+    idx = sample(gen, n, 1 << 16, dev)
+    record("B1", lambda: mont_mul(a, b, FP.params),
+           lambda: mont_mul_plain(a[:, idx], b[:, idx], FP.params), 5, 1,
+           3 * FE_BYTES * n, sass["B1"], n, pick=lambda t: t[:, idx],
+           plain_lanes=len(idx))
+    del a, b
+
+    # B2: the two levels of a 64-column lift to 2^19 points (a = 2^10, b =
+    # 2^9): rows of 1024 with the cross multipliers, then rows of 512
+    for log_s, rows, mult in (
+            (10, 64 << 9, torch.as_tensor(cuda_ntt._cross_twiddles_host(
+                "Fp", 10, 9, False), device=dev)),
+            (9, 64 << 10, None)):
+        S = 1 << log_s
+        x = device_limbs(gen, (rows, S), dev)
+        idx = sample(gen, rows, 128, dev)
+        m_idx = None if mult is None else mult[:, idx % mult.shape[1]]
+        record(f"B2 rows {S}",
+               lambda: cuda_ntt.colntt(x, FP, False, mult, None),
+               lambda: cuda_ntt.colntt_plain(x[:, idx], FP, False, m_idx),
+               5, 1, 2 * FE_BYTES * rows * S + FE_BYTES * S // 2
+               + (0 if mult is None else FE_BYTES * mult[0].numel()),
+               sass["B1"], rows * (S // 2 * log_s + (S if mult is not None else 0)),
+               pick=lambda t: t[:, idx], plain_lanes=len(idx))
+        del x
+
+    # B3s: the bucket scan of one group of the 64-column pass (plan: 32
+    # windows of 1024 chunk lanes, L = 128), `same` from sorted c = 16 digits
+    L, lanes = 128, 1 << 15
+    same = sweep.bucket_same(gen, L, lanes, lanes_per_window=1024, c=16,
+                             device=dev)
+    pick = torch.as_tensor(gen.integers(0, srs.n, size=L * lanes), device=dev)
+    sx, sy = (c[:, pick].reshape(16, L, lanes).transpose(0, 1).contiguous()
+              for c in (srs.g.x, srs.g.y))
+    n_same = int(same.sum())
+    record("B3s", lambda: tuple(cp.padd_select_mixed_scan(same, sx, sy)),
+           lambda: tuple(cp.madd_select_scan_plain(same, sx, sy)), 2, 1,
+           L * lanes + 2 * FE_BYTES * L * lanes + 3 * FE_BYTES * L * lanes,
+           product["B3s"], MADD * n_same, plain_lanes=lanes)
+    out["B3s"]["same_share"] = n_same / (L * lanes)
+    del same, sx, sy, pick
+
+    # B4s: 1024 windows (64 columns x 16) of H = 256 lanes and S = 128
+    # steps, read through the msm's strided view (2^15 + 2 buckets a window)
+    p, q, _, _ = projective_points(gen, srs, lanes, dev)
+    windows, H, S = 1024, 256, 128
+    n_s = windows * H
+    pick = torch.as_tensor(gen.integers(0, lanes, size=windows * (H * S + 2)),
+                           device=dev)
+    bk = PointBatch(*(c[:, pick].reshape(16, windows, H * S + 2)[..., :H * S]
+                      .reshape(16, windows, H, S) for c in p))
+    del pick
+    w_idx = sample(gen, windows, 32, dev)
+    record("B4s", lambda: tuple(x for part in cp.padd_suffix_scan(bk)
+                                for x in part),
+           lambda: tuple(x for part in cp.suffix_scan_plain(
+               PointBatch(*(c[:, w_idx] for c in bk))) for x in part),
+           1, 1, 3 * FE_BYTES * S * n_s + 6 * FE_BYTES * n_s, product["B4s"],
+           (2 * S - 1) * ADD * n_s, pick=lambda t: tuple(x[:, w_idx] for x in t),
+           plain_lanes=len(w_idx) * H)
+    del bk
+
+    # B6h (16 windows of c = 16 over 64 columns) and the doubling chains
+    # (15 for the top bucket, 7 for the weighted sum, at 64 x 16 lanes)
+    nw, c_bits, cols = 16, 16, 64
+    ws = PointBatch(*(c[:, :nw * cols].reshape(16, nw, cols) for c in p))
+    record("B6h", lambda: tuple(cp.pdouble_horner(ws, c_bits)),
+           lambda: tuple(cp.horner_plain(ws, c_bits)), 3, 1,
+           3 * FE_BYTES * nw * cols + 3 * FE_BYTES * cols, product["B6h"],
+           nw * (c_bits * DBL + ADD) * cols, plain_lanes=cols)
+    p_w = PointBatch(*(c[:, :nw * cols].contiguous() for c in p))
+    for times in (15, 7):
+        record(f"B6 x{times}", lambda: tuple(cp.pdouble(p_w, times=times)),
+               lambda: tuple(cp.pdouble_plain(p_w, times)), 5, 1,
+               6 * FE_BYTES * nw * cols, product["B6"],
+               times * DBL * nw * cols, plain_lanes=nw * cols)
+
+    # B4 at the suffix doubling's first level (1024 windows x 256 lanes),
+    # and the carry fixup's B4 and B5 at 2^15 lanes
+    p18, q18, _, _ = projective_points(gen, srs, n_s, dev)
+    record("B4@2^18", lambda: tuple(cp.padd(p18, q18)),
+           lambda: tuple(cp.padd_plain(p18, q18)), 5, 1, 9 * FE_BYTES * n_s,
+           product["B4"], ADD * n_s, plain_lanes=n_s)
+    del p18, q18
+    mask = torch.as_tensor(gen.random(lanes) < 0.5, device=dev)
+    m = int(mask.sum())
+    record("B4", lambda: tuple(cp.padd(p, q)),
+           lambda: tuple(cp.padd_plain(p, q)), 20, 1, 9 * FE_BYTES * lanes,
+           product["B4"], ADD * lanes, plain_lanes=lanes)
+    record("B5", lambda: tuple(cp.padd_select(mask, p, q)),
+           lambda: tuple(cp.padd_select_plain(mask, p, q)), 20, 1,
+           lanes + 3 * FE_BYTES * (2 * lanes + m), product["B5"], ADD * m,
+           plain_lanes=lanes)
+    return out
+
+
+def config3_phase(dev, report) -> dict:
+    """BASELINE config 3 (2^16 steps, W=24, k=17, the full ISA with memory)
+    through `tinyram.prove_config.prove_config3`, the function behind
+    scripts/torch_prove_config3.py --mock --prove: the Python and native
+    traces equal, the mock without failure, the proof verifies and answer
+    + 1 is rejected (the function raises otherwise).  The launch counts are
+    set to 0 just before the proof and read just after it; every kernel of
+    the config-3 path must have launched.  The proof's widest B1 launch is
+    the shape at which B1 is then checked."""
+    import torch
+
+    from tinyram_tpu_torch.tinyram.prove_config import prove_config3
+
+    rep = prove_config3(16, device=dev, cache_dir=None, rng=SeededRng(SEED),
+                        log=log)
+    objects = rep.pop("objects")
+    launches = rep["launches"]
+    missing = [k for k in CONFIG3_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the config-3 proof: "
+                             f"{missing}")
+    if launches["B3"] or launches["B4s"] != launches["B6h"] \
+            or launches["B6"] > 2 * launches["B6h"]:
+        raise AssertionError("the config-3 proof ran one-step loops: "
+                             f"{launches}")
+    rep["peak_bytes_max"] = max(rep["peak_bytes"].values())
+    log(f"[config3] seconds {rep['seconds']}; phases {rep['phases']}; "
+        f"verifier phases {rep['verifier_phases']}; launches per proof "
+        f"{launches}; peak device memory {rep['peak_bytes_max'] / 2**30:.2f} "
+        f"GiB; widest B1 launch {rep['widest_launches']['B1']} elements")
+    report["config3"] = rep
+    srs = objects["srs"]
+    del objects
+    torch.cuda.empty_cache()
+    return srs
 
 
 def prove_config(dev, report) -> dict:
@@ -861,9 +1101,13 @@ def golden_check(dev, report) -> None:
         raise AssertionError("W=8 proof differs from the JAX package's")
 
 
-def kernel_rows(checks, probe, launches) -> list:
+def kernel_rows(checks, probe, launches, launches3) -> list:
+    """The kernels line: each kernel at config 2's shapes, its launches in
+    one config-2 proof (P1, P2: in the probe path) and, beside them, in one
+    config-3 proof."""
     rows = []
     for kid, (name, source, replaces) in KERNELS.items():
+        n3 = launches3.get(kid, 0)
         if kid in checks:
             c = checks[kid]
             n = launches[kid]
@@ -877,7 +1121,8 @@ def kernel_rows(checks, probe, launches) -> list:
                      "source": source, "replaces": replaces, "launches": n,
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                     "bound_by": c["bound_by"], "library_ms": None})
+                     "bound_by": c["bound_by"], "library_ms": None,
+                     "launches_config3": n3})
     return rows
 
 
@@ -910,13 +1155,15 @@ def main() -> int:
     funcs = kernels.sass_opcodes(listing)
 
     probe = probe_phase(dev, report, funcs)
+    tables = sass_tables(funcs, listing)
     gen = np.random.default_rng(SEED)
     t0 = time.time()
     srs_check = setup(14, dev)
     report["srs_k14_s"] = time.time() - t0
-    log(f"[main] srs setup, k=14 (host hash-to-curve): {report['srs_k14_s']:.2f}s")
-    checks = check_kernels(dev, gen, srs_check, funcs, listing)
+    log(f"[main] srs setup, k=14: {report['srs_k14_s']:.2f}s")
+    checks = check_kernels(dev, gen, srs_check, tables)
     report["kernels"] = checks
+    del srs_check
     cfg = prove_config(dev, report)
     mock_phase(dev, report, cfg)
     negative_phase(dev, report)
@@ -924,10 +1171,19 @@ def main() -> int:
     batch_phase(dev, report, cfg)
     keyfile_phase(dev, report, cfg)
     golden_check(dev, report)
+    launches2 = cfg["launches"]
+    del cfg
+    torch.cuda.empty_cache()
+    srs17 = config3_phase(dev, report)
+    report["kernels_config3"] = check_config3_kernels(
+        dev, np.random.default_rng(SEED + 3), srs17, tables,
+        report["config3"]["widest_launches"]["B1"])
+    del srs17
     report["total_s"] = time.time() - t_start
     log(f"[total] {report['total_s']:.1f}s")
 
-    rows = kernel_rows(checks, probe, cfg["launches"])
+    rows = kernel_rows(checks, probe, launches2,
+                       report["config3"]["launches"])
     report["kernel_rows"] = rows
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

@@ -79,6 +79,14 @@ def test_b2_ntt(dev, log_n, inverse):
     assert cuda_ntt.colntt.launches > before
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_b2_ntt_2_19(dev, inverse):
+    """Config 3's extended domain: one column of 2^19 points, rows of 2^10
+    and of 2^9 with the cross multipliers between them."""
+    x = _limbs((1, 1 << 19), 19)
+    _gpu_equals_cpu(ntt(FP, x.to(dev), inverse), ntt(FP, x, inverse))
+
+
 def test_b2_rows_with_multipliers(dev):
     x, mult, scale = _limbs((6, 256), 3), _limbs((3, 256), 4), _limbs((), 5)
     _gpu_equals_cpu(
@@ -125,7 +133,7 @@ def test_b3_to_b6_points(dev, points):
     _equal(cp.pdouble(dp), cp.pdouble_plain(p))
 
 
-@pytest.mark.parametrize("times", [0, 1, 12])
+@pytest.mark.parametrize("times", [0, 1, 12, 15])
 @pytest.mark.parametrize("n", [1, 65, 1000])
 def test_b6_count(dev, points, times, n):
     """B6 with a count: `times` doublings in one launch (none for 0)."""
@@ -136,12 +144,13 @@ def test_b6_count(dev, points, times, n):
 
 
 @pytest.mark.parametrize("A,H,S", [(1, 1, 1), (1, 65, 2), (3, 5, 7),
-                                   (4, 64, 64)])
+                                   (4, 64, 64), (2, 256, 128)])
 def test_b4s_suffix_scan(dev, points, A, H, S):
     """B4s against its plain loop over (A, H, S) buckets with identity
     lanes, read as the msm reads them: a view of (16, A, H*S + 2) (tiles of
     the layout pass cut by H and S); on lane 0 the buckets P and -P take
-    acc through the identity."""
+    acc through the identity.  (4, 64, 64) is config 2's window (c = 13),
+    (2, 256, 128) config 3's (c = 16: a stride of 2^15 + 2 words)."""
     p, q = points[0], points[1]
     idx = np.random.default_rng(A * H * S).integers(0, 1000, size=A * (H * S + 2))
     full = PointBatch(*(c[:, idx].reshape(16, A, H * S + 2)
@@ -164,7 +173,7 @@ def test_b4s_suffix_scan(dev, points, A, H, S):
 
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("nw,c,n", [(1, 1, 1), (3, 2, 5), (20, 13, 4),
-                                    (4, 3, 70)])
+                                    (4, 3, 70), (16, 16, 4)])
 def test_b6h_horner(dev, points, group, nw, c, n):
     """B6h against its plain loop, one thread or a group of four per lane;
     n = 5 and 70 leave a ragged warp at the group of four."""
@@ -208,7 +217,7 @@ def pool():
     return pts + [host.neg(pt) for pt in pts]
 
 
-@pytest.mark.parametrize("L,M", [(1, 1), (1, 65), (6, 130), (8, 1000)])
+@pytest.mark.parametrize("L,M", [(1, 1), (1, 65), (6, 130), (8, 1000), (128, 1000)])
 def test_b3s_scan(dev, pool, L, M):
     """B3s against its plain loop: columns of `same` all false, all true
     and mixed, and an accumulator that P + (-P) turns into the identity."""

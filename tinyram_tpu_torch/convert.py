@@ -12,11 +12,10 @@ import numpy as np
 import torch
 
 from .curve import vesta
-from .field.field import FP
 from .ipa.srs import SRS
 from .plonk.circuit import ConstraintSystem
 from .plonk.keygen import ProvingKey, VerifyingKey
-from .poly.domain import Domain
+from .poly.domain import domain_cache
 from .utils.device import CUDA
 
 
@@ -70,7 +69,7 @@ def pk_from_numpy(arrays: dict, cs: ConstraintSystem, device=CUDA) -> ProvingKey
     )
     return ProvingKey(
         vk=vk,
-        domain=Domain(FP, k, extended_k, device),
+        domain=domain_cache("Fp", k, extended_k, device),
         fixed_lag=cols("fixed_lag"),
         fixed_coeff=cols("fixed_coeff"),
         sigma_lag=cols("sigma_lag"),

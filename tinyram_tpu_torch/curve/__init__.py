@@ -9,6 +9,7 @@ from .vesta import (
     identity,
     is_identity,
     neg,
+    scalar_mul,
     select,
     to_affine_host,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "identity",
     "is_identity",
     "neg",
+    "scalar_mul",
     "select",
     "to_affine_host",
     "msm",

@@ -179,6 +179,17 @@ def double(p: PointBatch, F: Field = FQ) -> PointBatch:
     return PointBatch(X3, Y3, z3)
 
 
+def scalar_mul(scalar_bits: torch.Tensor, p: PointBatch) -> PointBatch:
+    """Double-and-add over a (255, *batch) bit tensor (msb first), as the
+    reference's `scalar_mul`: from the identity, acc = 2·acc, then acc + p
+    where the bit is set.  One launch of the ladder B5l on the card (its
+    plain loop on the CPU); the complete add is symmetric in its operands,
+    so B5l's p + 2·acc is the reference's 2·acc + p limb for limb."""
+    from .cuda_point import padd_select_ladder  # cuda_point imports vesta
+
+    return padd_select_ladder(scalar_bits.to(torch.bool), p)
+
+
 def neg(p: PointBatch) -> PointBatch:
     return PointBatch(p.x, FQ.neg(p.y), p.z)
 

@@ -138,6 +138,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor, params: FieldParams):
         return out
     lib = kernels.library()
     mont_mul.launches += 1
+    mont_mul.widest = max(mont_mul.widest, n)
     kernels.check(
         lib.tr_mont_mul(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), n,

@@ -29,6 +29,7 @@ from .params import (
     fp_params,
     fq_params,
     int_to_limbs,
+    ints_to_limb_array,
     limbs_to_int,
 )
 
@@ -163,11 +164,8 @@ class Field:
             dev = torch.as_tensor(limbs, device=device)
             return self.to_mont(dev) if to_mont else dev
         factor = self.params.r_mod_p if to_mont else 1
-        arr = np.asarray(
-            [int_to_limbs(int(x) * factor % self.modulus) for x in ints],
-            dtype=np.int32,
-        ).reshape(-1, N_LIMBS).T  # (16, N)
-        return torch.as_tensor(np.ascontiguousarray(arr), device=device)
+        arr = ints_to_limb_array([int(x) * factor % self.modulus for x in ints])
+        return torch.as_tensor(arr, device=device)  # (16, N)
 
     def encode_scalar(self, x: int, to_mont: bool = True, device="cpu"):
         return self.encode([x], to_mont=to_mont, device=device)[:, 0]

@@ -17,6 +17,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 
+import numpy as np
+
 # Pallas base field (circuit field).  255 bits, p ≡ 1 (mod 2^32).
 P_PALLAS_BASE = 0x40000000000000000000000000000000224698FC094CF91B992D30ED00000001
 # Vesta base field (coordinate field of the commitment curve).
@@ -47,6 +49,24 @@ def limbs_to_int(limbs) -> int:
     for i, limb in enumerate(limbs):
         out |= (int(limb) & LIMB_MASK) << (LIMB_BITS * i)
     return out
+
+
+def ints_to_limb_array(values) -> np.ndarray:
+    """`int_to_limbs` of many non-negative ints below 2^256, as one (16, N)
+    int32 array: each value's bytes at C speed, not a Python loop over its
+    16 limbs."""
+    buf = b"".join(int(v).to_bytes(2 * N_LIMBS, "little") for v in values)
+    return np.frombuffer(buf, dtype="<u2").reshape(-1, N_LIMBS).T.astype(
+        np.int32, order="C")
+
+
+def limb_array_to_ints(limbs) -> list[int]:
+    """`limbs_to_int` of each column of a (16, N) array of limbs below
+    2^16."""
+    buf = np.ascontiguousarray(np.asarray(limbs).T, dtype="<u2").tobytes()
+    step = 2 * N_LIMBS
+    return [int.from_bytes(buf[i:i + step], "little")
+            for i in range(0, len(buf), step)]
 
 
 @dataclass(frozen=True)

@@ -2,16 +2,22 @@
 
 Port of `tinyram_tpu/ipa/srs.py`: the same try-and-increment hash-to-curve
 from Blake2b(label ‖ index ‖ counter), so both packages derive identical
-generators.  Generation is host-side; `setup` caches an SRS in memory per
-(k, device) and, when given a `cache_dir`, on disk in the reference's
-`srs_vesta_k{k}.npz` format.
+generators.  Generation is host-side.  Each generator depends on its index
+alone, so the 2^k generators of a smaller k are the first 2^k of a larger
+one: the process keeps the generators hashed so far and hashes only those
+it lacks, in a pool of worker processes when they are many (k = 17 has
+2^17 of them, each a square root mod q after a hash).  `setup` caches an SRS in
+memory per (k, device) and, when given a `cache_dir`, on disk in the
+reference's `srs_vesta_k{k}.npz` format.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
+from multiprocessing import get_context
 
 import numpy as np
 
@@ -61,6 +67,47 @@ class SRS:
         return self.g.x.device
 
 
+_G_LABEL = b"tinyram-tpu-srs-g"
+_G_HOST: list = []  # the G generators hashed (or loaded) so far, by index
+POOL_MIN = 1 << 12  # fewer new generators than this are hashed in-process
+_POOL_CHUNK = 1 << 11  # generators per task of a pool worker
+
+
+def _hash_range(lo: int, hi: int) -> list[AffinePoint]:
+    return [_hash_to_curve(_G_LABEL, i) for i in range(lo, hi)]
+
+
+def _workers() -> int:
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def hash_generators(lo: int, hi: int, workers: int = 1) -> list[AffinePoint]:
+    """G generators lo .. hi-1; with `workers` > 1 in a pool of that many
+    spawned processes (the parent may hold a CUDA context, which a fork
+    must not copy), in index order."""
+    if workers <= 1 or hi - lo <= _POOL_CHUNK:
+        return _hash_range(lo, hi)
+    starts = list(range(lo, hi, _POOL_CHUNK))
+    ends = [min(s + _POOL_CHUNK, hi) for s in starts]
+    out: list = []
+    with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as ex:
+        for part in ex.map(_hash_range, starts, ends):
+            out.extend(part)
+    return out
+
+
+def _generators(n: int) -> list[AffinePoint]:
+    """The first n G generators, hashing only those not hashed before."""
+    have = len(_G_HOST)
+    if n > have:
+        workers = _workers() if n - have >= POOL_MIN else 1
+        _G_HOST.extend(hash_generators(have, n, workers))
+    return _G_HOST[:n]
+
+
 def _gen_host(k: int, cache_dir: str | None):
     n = 1 << k
     path = None if cache_dir is None else os.path.join(
@@ -74,17 +121,20 @@ def _gen_host(k: int, cache_dir: str | None):
              int.from_bytes(ys[i].tobytes(), "little"))
             for i in range(n + 2)
         ]
+        if len(_G_HOST) < n:
+            _G_HOST[:] = pts[:n]
     else:
-        pts = [_hash_to_curve(b"tinyram-tpu-srs-g", i) for i in range(n)]
-        pts.append(_hash_to_curve(b"tinyram-tpu-srs-u", 0))
-        pts.append(_hash_to_curve(b"tinyram-tpu-srs-w", 0))
+        pts = _generators(n) + [_hash_to_curve(b"tinyram-tpu-srs-u", 0),
+                                _hash_to_curve(b"tinyram-tpu-srs-w", 0)]
         if path is not None:
             os.makedirs(cache_dir, exist_ok=True)
             xs = np.array([np.frombuffer(p[0].to_bytes(32, "little"), np.uint8)
                            for p in pts])
             ys = np.array([np.frombuffer(p[1].to_bytes(32, "little"), np.uint8)
                            for p in pts])
-            np.savez(path, xs=xs, ys=ys)
+            tmp = f"{path}.tmp{os.getpid()}.npz"
+            np.savez(tmp, xs=xs, ys=ys)
+            os.replace(tmp, path)
     return pts[:n], pts[n], pts[n + 1]
 
 

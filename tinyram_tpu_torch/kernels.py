@@ -197,14 +197,21 @@ def stream_ptr(device) -> int:
 
 def register(kernel_id: str, wrapper):
     """Give a kernel wrapper its launch count (a plain int attribute that
-    the wrapper bumps where it launches) and list it under `kernel_id`."""
+    the wrapper bumps where it launches) and its widest launch (the most
+    elements of one launch, for wrappers that record it: B1), and list it
+    under `kernel_id`."""
     wrapper.launches = 0
+    wrapper.widest = 0
     _WRAPPERS[kernel_id] = wrapper
     return wrapper
 
 
 def launch_counts() -> dict:
     return {k: w.launches for k, w in _WRAPPERS.items()}
+
+
+def widest_launches() -> dict:
+    return {k: w.widest for k, w in _WRAPPERS.items() if w.widest}
 
 
 def total_launches() -> int:
@@ -214,3 +221,4 @@ def total_launches() -> int:
 def reset_launch_counts() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
+        w.widest = 0

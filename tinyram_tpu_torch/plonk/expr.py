@@ -154,7 +154,13 @@ def evaluate(
         cache[key] = out
         return out
 
-    return rec(expr)
+    try:
+        return rec(expr)
+    finally:
+        # rec refers to itself through its closure: without this the cycle
+        # keeps every memoized node (whole evaluation columns) alive until
+        # the garbage collector runs
+        del rec
 
 
 def queried_vars(exprs) -> set[Var]:

@@ -19,7 +19,7 @@ from ..curve.host import AffinePoint
 from ..field.field import FP
 from ..ipa import SRS
 from ..ipa.ipa import commit_many
-from ..poly.domain import Domain
+from ..poly.domain import Domain, domain_cache
 from ..poly.ntt import _mont_table, omega_for
 from .circuit import Assignment, Column, ConstraintSystem
 
@@ -100,7 +100,7 @@ def keygen(
     dev = srs.device
     assert fixed_assignment.n == n
     extended_k = k + cs.extension_factor_log2()
-    domain = Domain(FP, k, extended_k, dev)
+    domain = domain_cache("Fp", k, extended_k, dev)
 
     fixed_lag = []
     for i in range(cs.num_fixed):

@@ -26,7 +26,7 @@ import torch
 
 from .. import kernels
 from ..field.field import FP
-from ..field.params import limbs_to_int
+from ..field.params import limb_array_to_ints, limbs_to_int
 from ..ipa import SRS
 from ..ipa.ipa import COMMIT_CHUNK, commit, commit_many, open_poly
 from ..poly.ntt import _mont_table, eval_poly, tree_sum
@@ -485,10 +485,8 @@ def create_proof(
             ap_body = FP.encode(ap_arr, device=dev)
             sp_body = FP.encode(sp_arr, device=dev)
         else:
-            ap_ints, sp_ints = permute_lookup(
-                [limbs_to_int(ha[:, i]) for i in range(u)],
-                [limbs_to_int(hs[:, i]) for i in range(u)],
-            )
+            ap_ints, sp_ints = permute_lookup(limb_array_to_ints(ha),
+                                              limb_array_to_ints(hs))
             ap_body = torch.as_tensor(_mont_table(FP, ap_ints), device=dev)
             sp_body = torch.as_tensor(_mont_table(FP, sp_ints), device=dev)
         tail_vals = _rand_tail(2 * (n - u))

@@ -15,9 +15,8 @@ import numpy as np
 import torch
 
 from ..curve.host import AffinePoint
-from ..field.field import FP
 from ..field.params import N_LIMBS
-from ..poly.domain import Domain
+from ..poly.domain import domain_cache
 from ..utils.device import CUDA
 from .circuit import Column, ConstraintSystem
 from .keygen import ProvingKey, VerifyingKey
@@ -85,7 +84,7 @@ def load_pk(path: str, cs: ConstraintSystem, device=CUDA) -> ProvingKey:
         sigma_commitments=_arr_to_points(data["sigma_comms"]),
         perm_columns=perm_cols,
     )
-    domain = Domain(FP, k, ek, device)
+    domain = domain_cache("Fp", k, ek, device)
     return ProvingKey(
         vk=vk,
         domain=domain,

@@ -18,7 +18,7 @@ from ..curve import host_jacobian
 from ..field.field import FP
 from ..ipa import SRS
 from ..ipa.ipa import commit_many, verify_open, verify_open_deferred
-from ..poly.domain import Domain
+from ..poly.domain import Domain, domain_cache
 from ..poly.ntt import eval_poly
 from ..transcript import TranscriptReader
 from ..utils.profiling import counters
@@ -110,7 +110,7 @@ def _verify(
     cs = vk.cs
     n = 1 << vk.k
     dev = srs.device
-    dom = Domain(FP, vk.k, vk.extended_k, dev)
+    dom = domain_cache("Fp", vk.k, vk.extended_k, dev)
     tr = TranscriptReader(proof)
     vk.absorb_into(tr)
     t0 = time.time()

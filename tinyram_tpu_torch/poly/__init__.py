@@ -1,5 +1,5 @@
 from .ntt import ntt, powers, powers_device, eval_poly, tree_sum, coeff_scale, omega_for
-from .domain import Domain
+from .domain import Domain, domain_cache
 
 __all__ = [
     "ntt",
@@ -10,4 +10,5 @@ __all__ = [
     "coeff_scale",
     "omega_for",
     "Domain",
+    "domain_cache",
 ]

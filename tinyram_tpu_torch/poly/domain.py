@@ -1,7 +1,9 @@
 """Evaluation domains for the PLONKish prover.
 
 Port of `tinyram_tpu/poly/domain.py` (single device: the reference's mesh
-branch for the sharded NTT is not ported yet).
+branch for the sharded NTT is not ported yet), with its `domain_cache`:
+one `Domain` per (field, k, extended k, device), so keygen, the key
+loader and the verifier share one domain and its cached tables.
 
 A `Domain` owns the size-n subgroup H (circuit rows) and the extended coset
 g·H_ext used for quotient evaluation.  The coset generator is the field's
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..field.field import Field
+from ..field.field import FP, FQ, Field
 from ..field.params import N_LIMBS
 from ..utils.device import CUDA, resolve
 from .ntt import _mont_table, coeff_scale, ntt, omega_for, powers
@@ -92,33 +94,36 @@ class Domain:
         """Host table of [1, ω, …, ω^{n-1}] (Montgomery)."""
         return powers(self.field, self.omega, self.n)
 
+    def _coset_points(self) -> list[int]:
+        """[g·ω_ext^i for i < n_ext] (host ints)."""
+        p = self.field.modulus
+        xs = [self.g_coset] * self.n_ext
+        for i in range(1, self.n_ext):
+            xs[i] = xs[i - 1] * self.omega_ext % p
+        return xs
+
     def l0_evals_ext(self) -> np.ndarray:
         """Coset-extended evaluations of the first Lagrange basis poly l_0.
 
-        l_0(X) = (X^n - 1) / (n (X - 1)).  Cached: host modpow loop.
+        l_0(X) = (X^n - 1) / (n (X - 1)).  Cached.  X^n cycles with period
+        n_ext / n on the coset, and the n_ext denominators take one batch
+        inversion (three products each and one modpow), not a modpow each:
+        2^19 of them at config 3's size.
         """
         if self._l0_ext is None:
             p = self.field.modulus
-            vals = []
-            x = self.g_coset
-            for _ in range(self.n_ext):
-                num = (pow(x, self.n, p) - 1) % p
-                den = (self.n * (x - 1)) % p
-                vals.append(num * pow(den, p - 2, p) % p)
-                x = (x * self.omega_ext) % p
+            xs = self._coset_points()
+            period = self.n_ext // self.n
+            nums = [(pow(x, self.n, p) - 1) % p for x in xs[:period]]
+            invs = _batch_inverse([self.n * (x - 1) % p for x in xs], p)
+            vals = [nums[i % period] * inv % p for i, inv in enumerate(invs)]
             self._l0_ext = _mont_table(self.field, vals)
         return self._l0_ext
 
     def x_evals_ext(self) -> np.ndarray:
         """Evaluations of the identity polynomial X on the extended coset."""
         if self._x_ext is None:
-            p = self.field.modulus
-            vals = []
-            x = self.g_coset
-            for _ in range(self.n_ext):
-                vals.append(x)
-                x = (x * self.omega_ext) % p
-            self._x_ext = _mont_table(self.field, vals)
+            self._x_ext = _mont_table(self.field, self._coset_points())
         return self._x_ext
 
     def lagrange_sum_ext(self, rows: tuple) -> torch.Tensor:
@@ -151,3 +156,31 @@ class Domain:
             li = zx * wi % p * n_inv % p * pow(den, p - 2, p) % p
             out.append(li)
         return out
+
+
+def _batch_inverse(vals: list[int], p: int) -> list[int]:
+    """[v^-1 mod p for v in vals] (all nonzero) by Montgomery's trick."""
+    prefix = [1] * (len(vals) + 1)
+    for i, v in enumerate(vals):
+        prefix[i + 1] = prefix[i] * v % p
+    inv = pow(prefix[-1], p - 2, p)
+    out = [0] * len(vals)
+    for i in range(len(vals) - 1, -1, -1):
+        out[i] = prefix[i] * inv % p
+        inv = inv * vals[i] % p
+    return out
+
+
+_DOMAINS: dict = {}
+
+
+def domain_cache(field_name: str, k: int, extended_k: int,
+                 device=CUDA) -> Domain:
+    """The one `Domain` of `field_name` ("Fp" or "Fq") at (k, extended_k)
+    on `device`, built on first use."""
+    dev = resolve(device)
+    key = (field_name, k, extended_k, str(dev))
+    if key not in _DOMAINS:
+        _DOMAINS[key] = Domain(FP if field_name == "Fp" else FQ, k, extended_k,
+                               dev)
+    return _DOMAINS[key]

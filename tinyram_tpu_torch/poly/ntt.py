@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..field.field import FP, FQ, Field
-from ..field.params import N_LIMBS, int_to_limbs
+from ..field.params import N_LIMBS, ints_to_limb_array
 
 NTT_KERNEL_MIN = 512  # smallest CUDA transform routed to kernel B2
 
@@ -34,9 +34,7 @@ def _mont_table(field: Field, values) -> np.ndarray:
     """Python ints -> (16, len) Montgomery limb table (host numpy int32)."""
     r = field.params.r_mod_p
     p = field.modulus
-    return np.array(
-        [int_to_limbs((int(v) * r) % p) for v in values], dtype=np.int32
-    ).reshape(-1, N_LIMBS).T.copy()
+    return ints_to_limb_array([(int(v) * r) % p for v in values])
 
 
 def _field(name: str) -> Field:
