@@ -55,7 +55,7 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     stream of tests/data/torch_golden_w8.npz and checks that the proof
     bytes equal the JAX package's recorded proof.
 11. BASELINE config 3 (2^16 steps of the full ISA with memory, W=24, 8
-    registers, k=17) through `tinyram.prove_config.prove_config3`, what
+    registers, k=17) through `tinyram.prove_config.prove_config(3)`, what
     `scripts/torch_prove_config3.py --mock --prove` runs: the Python and the
     native emulator's traces must be equal, the mock on the card must find
     no failure, the proof must verify and answer + 1 must be rejected; the
@@ -69,10 +69,26 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     B2's rows of a 64-column lift to 2^19, the 64-column commit pass at
     c = 16) against its plain version, on a seeded sample of lanes where
     the plain version would take minutes.
+12. `entry()` (tinyram_tpu_torch/entry.py, the twin of
+    `__graft_entry__.entry()`: NTT -> multiply -> inverse NTT at 2^12) on
+    the card, equal bit for bit to the same function on the CPU; B1 and B2
+    must launch.
+13. `verify_msm` (the twin of scripts/verify_msm_tpu.py) at 2^16 (c = 15:
+    every case against the host oracle) and at 2^20 (c = 16: all-equal and
+    selector-like against the oracle, random and edge against the sum of
+    their halves' MSMs at c = 13), `msm` and `msm_many` with the
+    affine-input check on; `setup(20)` (the SRS hashed past 2^17 in the
+    pool, cached in build/cache/) is timed on its own between them.  Then
+    B3s and B4s at those two MSMs' shapes against their plain versions.
+14. The throughput steps of `python -m tinyram_tpu_torch.bench` (MSM at
+    2^16 and 2^20, modmul at 2^18, NTT at 2^20 and 16 x 2^18); its JSON
+    line is printed.  In 12-14 the counts are reset before each path and
+    every kernel of it must launch.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line
 (each kernel at config 2's shapes, its launches in one config-2 proof and,
-as "launches_config3", in one config-3 proof), and as its last line
+as "launches_config3", in one config-3 proof, and as "launches_paths" in
+each path of 12-14), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
 the last line; without a CUDA device it exits 1 too.
 A detailed report goes to chiprun_out/chip_smoke_report.json.
@@ -122,6 +138,10 @@ PROOF_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B5l", "B6", "B6h")
 # launched by a config-3 proof: every MSM there is past 2^15 lanes, so none
 # takes the ladder B5l
 CONFIG3_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B6", "B6h")
+# launched by every Pippenger MSM (verify_msm's runs), and by the bench's
+# throughput steps (its MSMs, modmul and NTTs)
+MSM_KERNELS = ("B3s", "B4", "B4s", "B5", "B6", "B6h")
+BENCH_KERNELS = ("B1", "B2") + MSM_KERNELS
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
@@ -804,7 +824,7 @@ def check_config3_kernels(dev, gen, srs, tables, b1_lanes: int) -> dict:
 
 def config3_phase(dev, report) -> dict:
     """BASELINE config 3 (2^16 steps, W=24, k=17, the full ISA with memory)
-    through `tinyram.prove_config.prove_config3`, the function behind
+    through `tinyram.prove_config.prove_config(3)`, the function behind
     scripts/torch_prove_config3.py --mock --prove: the Python and native
     traces equal, the mock without failure, the proof verifies and answer
     + 1 is rejected (the function raises otherwise).  The launch counts are
@@ -813,9 +833,9 @@ def config3_phase(dev, report) -> dict:
     the shape at which B1 is then checked."""
     import torch
 
-    from tinyram_tpu_torch.tinyram.prove_config import prove_config3
+    from tinyram_tpu_torch.tinyram.prove_config import prove_config
 
-    rep = prove_config3(16, device=dev, cache_dir=None, rng=SeededRng(SEED),
+    rep = prove_config(3, device=dev, cache_dir=None, rng=SeededRng(SEED),
                         log=log)
     objects = rep.pop("objects")
     launches = rep["launches"]
@@ -1101,10 +1121,165 @@ def golden_check(dev, report) -> None:
         raise AssertionError("W=8 proof differs from the JAX package's")
 
 
-def kernel_rows(checks, probe, launches, launches3) -> list:
+def entry_phase(dev, report) -> None:
+    """`tinyram_tpu_torch.entry.entry()` (NTT -> multiply -> inverse NTT
+    at 2^12, the twin of `__graft_entry__.entry()`) on the card, equal bit
+    for bit to the same function on the CPU (B1's and B2's plain versions);
+    B1 and B2 must launch on the card."""
+    import torch
+
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.entry import entry
+
+    t0 = time.time()
+    fn, args = entry()
+    kernels.reset_launch_counts()
+    got = fn(*args)
+    sync()
+    launches = kernels.launch_counts()
+    fn_cpu, args_cpu = entry(torch.device("cpu"))
+    want = fn_cpu(*args_cpu)
+    same = torch.equal(got.cpu(), want)
+    seconds = time.time() - t0
+    log(f"[entry] 2^12 NTT -> mul -> inverse NTT: card equal to CPU: {same}, "
+        f"launches B1={launches['B1']} B2={launches['B2']}, {seconds:.2f}s")
+    report["entry"] = {"equal": same, "launches": launches, "seconds": seconds}
+    if not same:
+        raise AssertionError("entry() on the card differs from the CPU")
+    if not (launches["B1"] and launches["B2"]):
+        raise AssertionError(f"entry() did not run B1 and B2: {launches}")
+
+
+def verify_msm_phase(dev, report) -> None:
+    """`tinyram_tpu_torch.verify_msm` at 2^16 (c = 15, every case against
+    the host oracle) and at 2^20 (c = 16; all-equal and selector-like
+    against the oracle, random and edge against the sum of the halves'
+    MSMs at c = 13), with `setup(20)` timed on its own between them; the
+    counts are reset before each run and every MSM kernel must launch."""
+    from tinyram_tpu_torch import kernels, verify_msm
+    from tinyram_tpu_torch.ipa.srs import CACHE_DIR, setup
+
+    out = {}
+    for log_n in (16, 20):
+        if log_n == 20:
+            t0 = time.time()
+            setup(20, dev, cache_dir=CACHE_DIR)
+            out["setup20_s"] = time.time() - t0
+            log(f"[verify_msm] setup(20): {out['setup20_s']:.2f}s")
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        rep = verify_msm.run(log_n, dev, log=lambda m: log(f"[verify_msm] {m}"))
+        rep["seconds"] = time.time() - t0
+        rep["launches"] = kernels.launch_counts()
+        out[f"2^{log_n}"] = rep
+        log(f"[verify_msm] 2^{log_n}: {rep['seconds']:.2f}s, launches "
+            f"{rep['launches']}")
+        if not rep["ok"]:
+            raise AssertionError(f"verify_msm at 2^{log_n} found mismatches")
+        missing = [k for k in MSM_KERNELS if rep["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"verify_msm at 2^{log_n} never launched "
+                                 f"{missing}")
+    report["verify_msm"] = out
+
+
+def bench_phase(dev, report, smi: str) -> None:
+    """The throughput steps of `python -m tinyram_tpu_torch.bench` (MSM at
+    2^16 and 2^20, modmul at 2^18, NTT at 2^20 and 16 x 2^18; its prove
+    steps run in the bench's own run), with the counts reset before them:
+    every kernel of those paths must launch.  Prints the bench's line."""
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.bench import Bench
+
+    bench = Bench(dev, log=log)
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    bench.throughput()
+    launches = kernels.launch_counts()
+    seconds = time.time() - t0
+    line = bench.line(smi)
+    log(f"[bench] throughput steps {seconds:.2f}s")
+    print(line, flush=True)
+    report["bench"] = {"seconds": seconds, "results": bench.results,
+                       "errors": bench.errors, "line": line}
+    if bench.errors:
+        raise AssertionError(f"bench steps failed: {bench.errors}")
+    missing = [k for k in BENCH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the bench steps never launched {missing}")
+    if len(line) >= 1500:
+        raise AssertionError(f"the bench line has {len(line)} characters")
+
+
+def check_msm_kernels(dev, gen, srs, tables, latency_us: float) -> dict:
+    """B3s and B4s at the two MSM shapes the bench adds, against their
+    plain versions, bounded as `check_kernels` bounds them: 2^16 points at
+    c = 15 (`plan(2^16, 18)`: 18 windows of 1792 chunk lanes, L = 37; B4s
+    over 18 windows of H = 128 lanes and S = 128 steps at the stride of
+    2^14 + 2 buckets) and 2^20 points at c = 16 in one column (4 windows a
+    group of 8192 chunk lanes, L = 128; B4s over 16 windows of H = 256
+    lanes, S = 128, stride 2^15 + 2).  B4s runs so few lanes that its
+    chain of dependent products bounds it: "chain_ms" is that depth (two
+    products per add, 2S on the accumulator's chain) at the product
+    latency (`latency_us`) that B6h's one-lane run measured."""
+    import torch
+
+    import torch_point_sweep as sweep
+    from tinyram_tpu_torch.curve import cuda_point as cp
+    from tinyram_tpu_torch.curve.msm import choose_window_bits, plan
+    from tinyram_tpu_torch.curve.vesta import PointBatch
+
+    _, product, _ = tables
+    out = {}
+    record = functools.partial(record_row, out, tag="msm kernel")
+    for log_n in (16, 20):
+        n = 1 << log_n
+        c = choose_window_bits(n)
+        nw = -(-256 // c)
+        G, lanes_w, L, _ = plan(n, nw)
+        M = G * lanes_w
+        same = sweep.bucket_same(gen, L, M, lanes_per_window=lanes_w, c=c,
+                                 device=dev)
+        pick = torch.as_tensor(gen.integers(0, srs.n, size=L * M), device=dev)
+        sx, sy = (t[:, pick].reshape(16, L, M).transpose(0, 1).contiguous()
+                  for t in (srs.g.x, srs.g.y))
+        n_same = int(same.sum())
+        kid = f"B3s 2^{log_n}"
+        record(kid, lambda: tuple(cp.padd_select_mixed_scan(same, sx, sy)),
+               lambda: tuple(cp.madd_select_scan_plain(same, sx, sy)), 2, 1,
+               L * M + 2 * FE_BYTES * L * M + 3 * FE_BYTES * L * M,
+               product["B3s"], MADD * n_same)
+        out[kid].update(same_share=n_same / (L * M), c=c, plan=[G, lanes_w, L])
+        del same, sx, sy, pick
+
+        half = c - 1
+        S = 1 << (half // 2)
+        H = (1 << half) // S
+        n_s = nw * H
+        p, _, _, _ = projective_points(gen, srs, 1 << 15, dev)
+        pick = torch.as_tensor(gen.integers(0, 1 << 15, size=nw * (H * S + 2)),
+                               device=dev)
+        bk = PointBatch(*(t[:, pick].reshape(16, nw, H * S + 2)[..., :H * S]
+                          .reshape(16, nw, H, S) for t in p))
+        kid = f"B4s 2^{log_n}"
+        record(kid, lambda: tuple(x for part in cp.padd_suffix_scan(bk)
+                                  for x in part),
+               lambda: tuple(x for part in cp.suffix_scan_plain(bk)
+                             for x in part), 3, 1,
+               3 * FE_BYTES * S * n_s + 6 * FE_BYTES * n_s, product["B4s"],
+               (2 * S - 1) * ADD * n_s)
+        out[kid].update(windows=nw, H=H, S=S,
+                        chain_ms=2 * S * latency_us / 1e3)
+        log(f"[msm kernel] {kid} chain bound {out[kid]['chain_ms']:.4f} ms "
+            f"({2 * S} dependent products)")
+        del bk, pick, p
+    return out
+
+
+def kernel_rows(checks, probe, launches, launches3, paths) -> list:
     """The kernels line: each kernel at config 2's shapes, its launches in
     one config-2 proof (P1, P2: in the probe path) and, beside them, in one
-    config-3 proof."""
+    config-3 proof and in each later path (`paths`: name -> counts)."""
     rows = []
     for kid, (name, source, replaces) in KERNELS.items():
         n3 = launches3.get(kid, 0)
@@ -1122,7 +1297,9 @@ def kernel_rows(checks, probe, launches, launches3) -> list:
                      "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                      "bound_by": c["bound_by"], "library_ms": None,
-                     "launches_config3": n3})
+                     "launches_config3": n3,
+                     "launches_paths": {name: counts.get(kid, 0)
+                                        for name, counts in paths.items()}})
     return rows
 
 
@@ -1179,11 +1356,36 @@ def main() -> int:
         dev, np.random.default_rng(SEED + 3), srs17, tables,
         report["config3"]["widest_launches"]["B1"])
     del srs17
+    torch.cuda.empty_cache()
+
+    phase_s = report["phase_s"] = {}
+    t0 = time.time()
+    entry_phase(dev, report)
+    phase_s["entry"] = time.time() - t0
+    t0 = time.time()
+    verify_msm_phase(dev, report)
+    phase_s["verify_msm"] = time.time() - t0
+    t0 = time.time()
+    report["kernels_msm"] = check_msm_kernels(
+        dev, np.random.default_rng(SEED + 4), setup(20, dev), tables,
+        checks["B6h"]["product_latency_us"])
+    phase_s["msm kernels"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    bench_phase(dev, report, smi)
+    phase_s["bench"] = time.time() - t0
+    log(f"[phases] seconds {phase_s}; setup(20) "
+        f"{report['verify_msm']['setup20_s']:.2f}s")
     report["total_s"] = time.time() - t_start
     log(f"[total] {report['total_s']:.1f}s")
 
+    paths = {"entry": report["entry"]["launches"],
+             "verify_msm 2^16": report["verify_msm"]["2^16"]["launches"],
+             "verify_msm 2^20": report["verify_msm"]["2^20"]["launches"]}
+    for name, res in report["bench"]["results"].items():
+        paths[f"bench {name}, per call"] = res["launches"]
     rows = kernel_rows(checks, probe, launches2,
-                       report["config3"]["launches"])
+                       report["config3"]["launches"], paths)
     report["kernel_rows"] = rows
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

@@ -32,7 +32,7 @@ def main() -> int:
     import torch
 
     from tinyram_tpu_torch.probes import nvidia_smi
-    from tinyram_tpu_torch.tinyram.prove_config import prove_config3
+    from tinyram_tpu_torch.tinyram.prove_config import prove_config
 
     args = sys.argv[1:]
     warm = int(args[args.index("--warm") + 1]) if "--warm" in args else 0
@@ -42,9 +42,9 @@ def main() -> int:
     prof = cProfile.Profile() if "--profile" in args else None
     if prof:
         prof.enable()
-    report = prove_config3(steps_log2, mock="--mock" in args,
-                           prove="--prove" in args, warm=warm,
-                           log=lambda m: print(m, flush=True))
+    report = prove_config(3, steps_log2, mock="--mock" in args,
+                          prove="--prove" in args, warm=warm,
+                          log=lambda m: print(m, flush=True))
     if prof:
         prof.disable()
         text = io.StringIO()

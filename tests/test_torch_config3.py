@@ -19,7 +19,7 @@ projective representation may differ.
   returns, with the garbage collector off (a reference cycle kept them,
   and the warm config-3 proofs' peak device memory grew with them);
 - `config3_program` at W = 16, k = 10 through the port's config-3 driver
-  (`prove_config.prove_config3`, mock only): its mock finds no failure, as
+  (`prove_config.prove_config(3)`, mock only): its mock finds no failure, as
   the JAX `MockProver` does, and a forged memory value is named identically
   by both.
 
@@ -53,7 +53,7 @@ from tinyram_tpu_torch.ipa.srs import _hash_to_curve
 from tinyram_tpu_torch.plonk import MockProver
 from tinyram_tpu_torch.plonk.expr import Var, evaluate
 from tinyram_tpu_torch.poly import domain_cache
-from tinyram_tpu_torch.tinyram.prove_config import prove_config3
+from tinyram_tpu_torch.tinyram.prove_config import prove_config
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
@@ -198,8 +198,8 @@ def _forge_load_value(fp, circ, asg):
 
 
 def test_config3_program_mock_matches_jax():
-    report = prove_config3(8, mock=True, prove=False, device="cpu",
-                           cache_dir=None, word_bits=16, k=10, log=lambda m: None)
+    report = prove_config(3, 8, mock=True, prove=False, device="cpu",
+                          cache_dir=None, word_bits=16, k=10, log=lambda m: None)
     assert report["mock_failures"] == []
     assert report["steps"] == 249 and report["accesses"] > 0
     objects = report["objects"]

@@ -13,6 +13,7 @@ test_torch_proof_memory.py, the rejections in test_torch_proof_reject.py,
 one file each so that the test workers run them side by side.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -106,3 +107,35 @@ def test_port_never_imports_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_measuring_entry_points_never_import_jax():
+    """`entry`, `bench` and `verify_msm` load neither JAX nor the JAX
+    package, and `chip_smoke.py` and the sweep helpers it runs name neither
+    in any import (read from their source: their imports sit inside
+    functions that need a card)."""
+    code = (
+        "import sys\n"
+        "import tinyram_tpu_torch.entry, tinyram_tpu_torch.bench\n"
+        "import tinyram_tpu_torch.verify_msm\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules"
+        " if m == 'jax' or m.startswith(('jax.', 'tinyram_tpu.'))"
+        " or m == 'tinyram_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    for path in ("chip_smoke.py", os.path.join("scripts", "torch_point_sweep.py")):
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        assert "tinyram_tpu_torch.entry" in names or path != "chip_smoke.py"
+        assert not [m for m in names
+                    if m.split(".")[0] in ("jax", "tinyram_tpu")], path

@@ -26,7 +26,9 @@ bucket scan, the ladder, the suffix scan, the window combine's
 log-depth trees and the carry fixup are Python loops of one-step launches
 (B4, B5), one per level.  The reference's environment knobs
 are keyword arguments with the same defaults (`window_bits`, `group_log2`,
-`lanes_log2`); its opt-in batched-affine scan is not ported.
+`lanes_log2`), and so is its `TINYRAM_DEBUG` check of the affine-input
+precondition (`check_affine`); its opt-in batched-affine scan is not
+ported.
 """
 
 from __future__ import annotations
@@ -356,14 +358,32 @@ def _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2):
     return _combine_windows(per_col, c)
 
 
+def check_affine_precondition(points: PointBatch) -> None:
+    """Raise ValueError unless every lane's z is 0 (the identity) or the
+    Montgomery one: the Pippenger path lifts each point as (x, y, 1) via
+    the mixed add, so a projective input would give a wrong sum without an
+    error.  One compare and reduce over the z limbs, and a device sync."""
+    z = points.z
+    one = FQ.ones(z.shape[1:], z.device)
+    if not bool(((z == 0).all(0) | (z == one).all(0)).all()):
+        raise ValueError(
+            "msm: points must be affine-or-identity (z per lane 0 or "
+            "Montgomery one); normalize with to_affine_host/from_affine_host"
+        )
+
+
 def msm(scalars_plain: torch.Tensor, points: PointBatch,
         window_bits: int | None = None, group_log2: int = GROUP_LOG2,
-        lanes_log2: int = LANES_LOG2) -> PointBatch:
+        lanes_log2: int = LANES_LOG2, check_affine: bool = False) -> PointBatch:
     """Σ s_i·P_i for (16, N) plain-form scalars; returns batch ().
 
     Points must be affine-or-identity (z per lane 0 or Montgomery one):
-    the Pippenger path (N > 2^15) lifts them as (x, y, 1).
+    the Pippenger path (N > 2^15) lifts them as (x, y, 1).  With
+    `check_affine` that is checked first, on either path
+    (`check_affine_precondition`).
     """
+    if check_affine:
+        check_affine_precondition(points)
     n = scalars_plain.shape[-1]
     if n <= SMALL_MSM_LANES:
         return _msm_small(scalars_plain, points)
@@ -375,9 +395,13 @@ def msm(scalars_plain: torch.Tensor, points: PointBatch,
 
 def msm_many(scalars_plain: torch.Tensor, points: PointBatch,
              window_bits: int | None = None, group_log2: int = GROUP_LOG2,
-             lanes_log2: int = LANES_LOG2) -> PointBatch:
+             lanes_log2: int = LANES_LOG2,
+             check_affine: bool = False) -> PointBatch:
     """MSM of B scalar vectors (16, B, N) against one point set; returns
-    batch (B,).  Points must be affine-or-identity, as for `msm`."""
+    batch (B,).  Points must be affine-or-identity, as for `msm`, and
+    `check_affine` checks it."""
+    if check_affine:
+        check_affine_precondition(points)
     _, B, n = scalars_plain.shape
     if B * n <= SMALL_MSM_LANES:
         return _msm_small(scalars_plain, points)

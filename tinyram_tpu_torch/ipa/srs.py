@@ -67,6 +67,8 @@ class SRS:
         return self.g.x.device
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CACHE_DIR = os.path.join(ROOT, "build", "cache")  # SRS and key files on disk
 _G_LABEL = b"tinyram-tpu-srs-g"
 _G_HOST: list = []  # the G generators hashed (or loaded) so far, by index
 POOL_MIN = 1 << 12  # fewer new generators than this are hashed in-process
@@ -84,19 +86,25 @@ def _workers() -> int:
         return os.cpu_count() or 1
 
 
+def pool_map(fn, *iterables, workers: int | None = None) -> list:
+    """[fn(*args) for args in zip(*iterables)] in a pool of `workers`
+    (default: the usable cores) spawned processes, in order: the parent
+    may hold a CUDA context, which a fork must not copy.  `fn` is a
+    module-level function (workers import it by name)."""
+    with ProcessPoolExecutor(workers or _workers(),
+                             mp_context=get_context("spawn")) as ex:
+        return list(ex.map(fn, *iterables))
+
+
 def hash_generators(lo: int, hi: int, workers: int = 1) -> list[AffinePoint]:
     """G generators lo .. hi-1; with `workers` > 1 in a pool of that many
-    spawned processes (the parent may hold a CUDA context, which a fork
-    must not copy), in index order."""
+    spawned processes (`pool_map`), in index order."""
     if workers <= 1 or hi - lo <= _POOL_CHUNK:
         return _hash_range(lo, hi)
     starts = list(range(lo, hi, _POOL_CHUNK))
     ends = [min(s + _POOL_CHUNK, hi) for s in starts]
-    out: list = []
-    with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as ex:
-        for part in ex.map(_hash_range, starts, ends):
-            out.extend(part)
-    return out
+    return [pt for part in pool_map(_hash_range, starts, ends, workers=workers)
+            for pt in part]
 
 
 def _generators(n: int) -> list[AffinePoint]:

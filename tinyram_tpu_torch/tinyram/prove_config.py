@@ -1,10 +1,11 @@
-"""BASELINE config 3 through the port's entry points: the twin of
+"""BASELINE configs 2 and 3 through the port's entry points: the twin of
 `scripts/prove_config3.py`.
 
-`prove_config3` runs the stages of the JAX script on one device (the card
+`prove_config` runs the stages of the JAX script on one device (the card
 unless the caller names another):
 
-  1. emulate `config3_program(2^steps_log2, word_bits)` with the Python
+  1. emulate the configuration's program (`config2_program` or
+     `config3_program`, 2^steps_log2 steps at `word_bits`) with the Python
      emulator and the native one, and require equal traces;
   2. build the witness on `TinyRamCircuit(word_bits, 8, k)`;
   3. `mock`: the port's `MockProver` on that witness; any failure raises;
@@ -19,7 +20,9 @@ before the stage) and the memory allocated after it.  The kernel launch counts (
 B1) are reset just before the proof and read just after it.  The report holds the seven prover phases
 and the four verifier phases ("prover.*", "verifier.*" of
 `utils.profiling.counters`).  Nothing is cut: W = 24, k = 17 is the JAX
-script's configuration (BASELINE config 3).
+script's configuration (BASELINE config 3); config 2 is W = 24, 2^12
+steps, k = 14 (the row count its trace needs), as `bench.py`'s prover
+benchmark proves it.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ import torch
 
 from .. import kernels
 from ..ipa import setup
+from ..ipa.srs import CACHE_DIR
 from ..plonk import MockProver, create_proof, load_pk, save_pk
 from ..utils.device import CUDA, resolve
 from ..utils.profiling import counters
-from .bench_programs import config3_program
+from .bench_programs import config2_program, config3_program
 from .circuit import TinyRamCircuit
 from .emulator import Trace, eval_program
 from .native import eval_program_native
@@ -44,8 +48,8 @@ from .native import eval_program_native
 WORD_BITS = 24
 REG_COUNT = 8
 K = 17  # a 2^16-step trace and its memory log fit 2^17 rows
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-CACHE_DIR = os.path.join(ROOT, "build", "cache")  # SRS and key files
+# BASELINE config -> (program, steps_log2, k; None: the rows the trace needs)
+CONFIGS = {2: (config2_program, 12, None), 3: (config3_program, 16, K)}
 
 
 def trace_mismatch(a: Trace, b: Trace) -> list[str]:
@@ -67,9 +71,10 @@ class _Stages:
     records its peak device memory and the memory still allocated after
     it."""
 
-    def __init__(self, device, log):
+    def __init__(self, device, log, tag):
         self.device = device
         self.log = log
+        self.tag = tag
         self.seconds: dict = {}
         self.peak_bytes: dict = {}
         self.held_bytes: dict = {}
@@ -89,23 +94,29 @@ class _Stages:
         peak = (f", peak device memory {self.peak_bytes[name] / 2**30:.2f} GiB"
                 f", held after {self.held_bytes[name] / 2**30:.2f} GiB"
                 if cuda else "")
-        self.log(f"[config3] {name}: {self.seconds[name]:.2f}s{peak}")
+        self.log(f"[{self.tag}] {name}: {self.seconds[name]:.2f}s{peak}")
         return out
 
 
-def prove_config3(steps_log2: int = 16, mock: bool = True, prove: bool = True,
-                  device=CUDA, cache_dir: str | None = CACHE_DIR, rng=secrets,
-                  word_bits: int = WORD_BITS, k: int | None = K, log=print,
-                  warm: int = 0) -> dict:
-    """Run the config-3 stages; returns a report (seconds, peak bytes,
-    phases, launches, sizes) and the objects of the run under "objects".
+def prove_config(config: int = 3, steps_log2: int | None = None,
+                 mock: bool = True, prove: bool = True, device=CUDA,
+                 cache_dir: str | None = CACHE_DIR, rng=secrets,
+                 word_bits: int = WORD_BITS, k: int | None = None, log=print,
+                 warm: int = 0) -> dict:
+    """Run the stages of BASELINE config `config` (2 or 3) at its steps
+    and k unless `steps_log2` or `k` say otherwise; returns a report
+    (seconds, peak bytes, phases, launches, sizes) and the objects of the
+    run under "objects".
     `warm` more proofs follow the first, each timed ("warm_prove_s") with
     its phases ("warm_phases": the last one's).  Raises if the
     traces differ, the mock names a failure, the proof is rejected or
     answer + 1 is accepted."""
     dev = resolve(device)
-    stage = _Stages(dev, log)
-    prog = config3_program(1 << steps_log2, word_bits=word_bits)
+    stage = _Stages(dev, log, f"config{config}")
+    program, default_steps, default_k = CONFIGS[config]
+    steps_log2 = default_steps if steps_log2 is None else steps_log2
+    k = default_k if k is None else k
+    prog = program(1 << steps_log2, word_bits=word_bits)
     trace = stage("emulate", lambda: eval_program(prog, word_bits, REG_COUNT))
     native = stage("emulate native", lambda: eval_program_native(
         prog, word_bits, REG_COUNT))
@@ -114,13 +125,13 @@ def prove_config3(steps_log2: int = 16, mock: bool = True, prove: bool = True,
         raise AssertionError(f"native and Python traces differ in {bad}")
     circ = TinyRamCircuit(word_bits, REG_COUNT, k=k)
     cs = circ.tcs.cs
-    log(f"[config3] {len(trace)} steps, {len(trace.accesses)} memory accesses, "
-        f"traces equal; W={word_bits} k={circ.k} n={circ.tcs.n} "
+    log(f"[config{config}] {len(trace)} steps, {len(trace.accesses)} memory "
+        f"accesses, traces equal; W={word_bits} k={circ.k} n={circ.tcs.n} "
         f"advice={cs.num_advice} fixed={cs.num_fixed} "
         f"instance={cs.num_instance} lookups={len(cs.lookups)} "
         f"range={len(cs.range_lookups)}")
-    report = {"word_bits": word_bits, "k": circ.k, "steps": len(trace),
-              "accesses": len(trace.accesses),
+    report = {"config": config, "word_bits": word_bits, "k": circ.k,
+              "steps": len(trace), "accesses": len(trace.accesses),
               "seconds": stage.seconds, "peak_bytes": stage.peak_bytes,
               "held_bytes": stage.held_bytes}
     objects = {"prog": prog, "trace": trace, "circ": circ}
@@ -131,16 +142,18 @@ def prove_config3(steps_log2: int = 16, mock: bool = True, prove: bool = True,
     if mock:
         failures = stage("mock", lambda: MockProver(cs, asg).verify())
         report["mock_failures"] = [str(f) for f in failures]
-        log(f"[config3] mock: {len(failures)} failures "
+        log(f"[config{config}] mock: {len(failures)} failures "
             f"{report['mock_failures'][:10]}")
         if failures:
-            raise AssertionError("the config-3 witness does not satisfy the "
-                                 f"circuit: {report['mock_failures'][:10]}")
+            raise AssertionError(f"the config-{config} witness does not "
+                                 "satisfy the circuit: "
+                                 f"{report['mock_failures'][:10]}")
 
     if prove:
         srs = stage("srs setup", lambda: setup(circ.k, dev, cache_dir=cache_dir))
         pk_path = None if cache_dir is None else os.path.join(
-            cache_dir, f"pk_config3_w{word_bits}_r{REG_COUNT}_k{circ.k}.npz")
+            cache_dir,
+            f"pk_config{config}_w{word_bits}_r{REG_COUNT}_k{circ.k}.npz")
         if pk_path is not None and os.path.exists(pk_path):
             pk = stage("key load", lambda: load_pk(pk_path, cs, dev))
         else:
@@ -153,7 +166,7 @@ def prove_config3(steps_log2: int = 16, mock: bool = True, prove: bool = True,
         counters.seconds.clear()
         proof = stage("prove", lambda: create_proof(
             srs, pk, asg, rng=rng, phase_hook=lambda name, s, n: log(
-                f"[config3 phase] {name}: {s:.3f}s, {n} kernel launches")))
+                f"[config{config} phase] {name}: {s:.3f}s, {n} kernel launches")))
         report["launches"] = kernels.launch_counts()
         report["widest_launches"] = kernels.widest_launches()
         report["phases"] = {name[len("prover."):]: v["seconds"]
@@ -170,13 +183,14 @@ def prove_config3(steps_log2: int = 16, mock: bool = True, prove: bool = True,
         bad_ok = stage("verify answer+1", lambda: circ.verify(
             srs, pk, prog, trace.answer + 1, proof))
         report["proof_bytes"] = len(proof)
-        log(f"[config3] proof {len(proof)} bytes, verify={ok}, answer+1 "
+        log(f"[config{config}] proof {len(proof)} bytes, verify={ok}, answer+1 "
             f"accepted={bad_ok}; launches {report['launches']}; verifier "
             f"phases {report['verifier_phases']}")
         if not ok:
-            raise AssertionError("the config-3 proof is rejected")
+            raise AssertionError(f"the config-{config} proof is rejected")
         if bad_ok:
-            raise AssertionError("the config-3 proof verifies for answer + 1")
+            raise AssertionError(f"the config-{config} proof verifies for "
+                                 "answer + 1")
         objects.update(srs=srs, pk=pk, proof=proof)
         report["warm_prove_s"] = []
         for i in range(warm):
