@@ -84,11 +84,18 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     2^16 and 2^20, modmul at 2^18, NTT at 2^20 and 16 x 2^18); its JSON
     line is printed.  In 12-14 the counts are reset before each path and
     every kernel of it must launch.
+15. The sharded paths (`tinyram_tpu_torch/shard/`, `shard_phase`), every
+    rank a process on the one card: `dryrun_multichip(2)` and `(4)`, a rank
+    made to raise, the sharded NTT of a (16, 2^20) column at D = 2 and 4,
+    the sharded MSM over 2^18 generators at D = 2, config 2 proved by
+    `create_proof(mesh=)` at D = 2 (the bytes of phase 4's proof), and the
+    scaling report at D = 1, 2, 4.  Each path's counts are reset in every
+    rank before it, summed over the ranks, and must show its kernels.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line
 (each kernel at config 2's shapes, its launches in one config-2 proof and,
 as "launches_config3", in one config-3 proof, and as "launches_paths" in
-each path of 12-14), and as its last line
+each path of 12-15), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
 the last line; without a CUDA device it exits 1 too.
 A detailed report goes to chiprun_out/chip_smoke_report.json.
@@ -96,6 +103,7 @@ A detailed report goes to chiprun_out/chip_smoke_report.json.
 
 from __future__ import annotations
 
+import collections
 import functools
 import json
 import os
@@ -142,6 +150,9 @@ CONFIG3_KERNELS = ("B1", "B2", "B3s", "B4", "B4s", "B5", "B6", "B6h")
 # throughput steps (its MSMs, modmul and NTTs)
 MSM_KERNELS = ("B3s", "B4", "B4s", "B5", "B6", "B6h")
 BENCH_KERNELS = ("B1", "B2") + MSM_KERNELS
+# launched by the config-2 proof at D = 2: its local transforms have 128-256
+# points, under B2's 512, so no B2
+SHARD_PROOF_KERNELS = ("B1", "B3s", "B4", "B4s", "B5", "B5l", "B6h")
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
@@ -1211,6 +1222,166 @@ def bench_phase(dev, report, smi: str) -> None:
         raise AssertionError(f"the bench line has {len(line)} characters")
 
 
+SHARD_NTT_LOG = 20  # (b): the sharded NTT of one (16, 2^20) column
+SHARD_MSM_LOG = 18  # (c): the sharded MSM over setup(18)'s generators
+
+
+def _rank_peaks(stats) -> list:
+    return [round(s["peak_bytes"] / 2**30, 3) for s in stats]
+
+
+def _summed(stats) -> dict:
+    out = collections.Counter()
+    for s in stats:
+        out.update(s["launches"])
+    return dict(out)
+
+
+def shard_phase(dev, report, proof2: bytes) -> dict:
+    """15. The sharded paths (`tinyram_tpu_torch/shard/`), every rank a
+    process on the one card (gloo, collectives staged through host
+    memory): (a) `dryrun_multichip(2)` and `(4)`; a rank made to raise must
+    make `run_on_mesh` raise within its deadline; (b) `ntt_sharded` of a
+    (16, 2^20) column at D = 2 and 4, forward and inverse, gathered, equal
+    bit for bit to the single-device `ntt`; (c) `msm_sharded` over
+    `setup(18)`'s 2^18 generators at D = 2 (2^17 per rank: the Pippenger
+    path), equal in affine form to the single-device `msm`; (d) BASELINE
+    config 2 proved by `create_proof(mesh=)` at D = 2 under the seeded
+    stream of phase 4: equal bytes on both ranks and equal to phase 4's
+    proof, accepted by `verify_proof`, rejected for answer + 1; (e)
+    `scaling_report` at D = 1, 2, 4 (NTT 2^20, MSM 2^18).  Each path's
+    launch counts are reset in every rank before it and summed over the
+    ranks: B2 and B1 must launch in (b), every MSM kernel in (c), and B1,
+    B3s, B4, B4s, B5, B5l and B6h in (d).  Returns the per-path counts."""
+    import numpy as np
+    import torch
+
+    from tinyram_tpu_torch.curve import PointBatch, msm, to_affine_host
+    from tinyram_tpu_torch.entry import dryrun_multichip
+    from tinyram_tpu_torch.field import FP
+    from tinyram_tpu_torch.ipa.srs import CACHE_DIR, cache_generators, setup
+    from tinyram_tpu_torch.poly import ntt
+    from tinyram_tpu_torch.shard import RankError, paths, run_on_mesh
+    from tinyram_tpu_torch.shard.scaling import scaling_report
+
+    t_phase = time.time()
+    out = {"seconds": {}, "peak_gib": {}}
+    counts = {}
+
+    def timed(name, fn):
+        t0 = time.time()
+        res = fn()
+        out["seconds"][name] = time.time() - t0
+        return res
+
+    # (a) the dry run, and a rank that fails
+    for d in (2, 4):
+        res = timed(f"dryrun {d}", lambda: dryrun_multichip(d, log=log))
+        out["peak_gib"][f"dryrun {d} proof"] = _rank_peaks(
+            [s["proof"] for s in res["stats"]])
+        counts[f"shard dryrun({d}) proof"] = _summed(
+            [s["proof"] for s in res["stats"]])
+    t0 = time.time()
+    try:
+        run_on_mesh(paths.raise_on_rank, 2, 1, timeout_s=120, log=log)
+    except RankError as e:
+        out["seconds"]["failing rank"] = time.time() - t0
+        log(f"[shard] a failing rank raised in the parent after "
+            f"{out['seconds']['failing rank']:.1f}s: "
+            f"{str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("run_on_mesh returned although a rank raised")
+
+    # the single-device references, on this process
+    gen = np.random.default_rng(SEED + 5)
+    a = gen.integers(0, 1 << 16, size=(16, 1 << SHARD_NTT_LOG))
+    a[15] &= 0x3FFF
+    a = a.astype(np.int32)
+    a_dev = torch.as_tensor(a, device=dev)
+    want = {inv: ntt(FP, a_dev, inverse=inv).cpu().numpy()
+            for inv in (False, True)}
+    del a_dev
+    sc = gen.integers(0, 1 << 16, size=(16, 1 << SHARD_MSM_LOG))
+    sc[15] &= 0x3FFF
+    sc = sc.astype(np.int32)
+    cache_generators(SHARD_MSM_LOG)  # the ranks load both SRS, not hash
+    cache_generators(14)
+    g18 = setup(SHARD_MSM_LOG, dev, cache_dir=CACHE_DIR).g
+    want_msm = to_affine_host(PointBatch(*(c[:, None] for c in msm(
+        torch.as_tensor(sc, device=dev), g18))))
+    del g18
+    torch.cuda.empty_cache()
+
+    ntt_calls = [(paths.ntt_path, (a, False)), (paths.ntt_path, (a, True))]
+    runs = {
+        2: timed("D=2 ranks: (b) (c) (d)", lambda: run_on_mesh(
+            paths.sequence, 2, ntt_calls + [
+                (paths.msm_path, (sc, None, SHARD_MSM_LOG)),
+                (paths.config_proof, (2, SEED))], log=log)),
+        4: timed("D=4 ranks: (b)", lambda: run_on_mesh(
+            paths.sequence, 4, ntt_calls, log=log)),
+    }
+    for d, ranks in runs.items():
+        for i, inv in enumerate((False, True)):
+            name = f"shard ntt 2^{SHARD_NTT_LOG}{' inverse' if inv else ''} D={d}"
+            if not all(np.array_equal(r[i][0], want[inv]) for r in ranks):
+                raise AssertionError(f"{name}: differs from the single-device ntt")
+            stats = [r[i][1] for r in ranks]
+            counts[name] = _summed(stats)
+            out["seconds"][name] = max(s["seconds"] for s in stats)
+            out["peak_gib"][name] = _rank_peaks(stats)
+            missing = [k for k in ("B1", "B2") if counts[name][k] == 0]
+            if missing:
+                raise AssertionError(f"{name}: never launched {missing}")
+    ranks = runs[2]
+    name = f"shard msm 2^{SHARD_MSM_LOG} D=2"
+    if not all(r[2][0] == want_msm for r in ranks):
+        raise AssertionError(f"{name}: differs from the single-device msm")
+    stats = [r[2][1] for r in ranks]
+    counts[name] = _summed(stats)
+    out["seconds"][name] = max(s["seconds"] for s in stats)
+    out["peak_gib"][name] = _rank_peaks(stats)
+    missing = [k for k in MSM_KERNELS if counts[name][k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
+
+    name = "shard config 2 proof D=2"
+    proofs = [r[3] for r in ranks]
+    stats = [p["stats"] for p in proofs]
+    counts[name] = _summed(stats)
+    out["seconds"][name] = max(s["seconds"] for s in stats)
+    out["peak_gib"][name] = _rank_peaks(stats)
+    same_ranks = len({p["proof"] for p in proofs}) == 1
+    same_single = proofs[0]["proof"] == proof2
+    log(f"[shard] config 2 at D=2: {len(proofs[0]['proof'])} bytes, equal on "
+        f"both ranks {same_ranks}, equal to phase 4's proof {same_single}, "
+        f"verify {proofs[0]['verified']}, answer+1 rejected "
+        f"{proofs[-1]['rejected']}; prove s {[round(s['seconds'], 3) for s in stats]}"
+        f"; rank 0 phases {stats[0]['phases']}")
+    if not (same_ranks and same_single and proofs[0]["verified"]
+            and proofs[-1]["rejected"]):
+        raise AssertionError(f"{name}: failed its checks")
+    missing = [k for k in SHARD_PROOF_KERNELS if counts[name][k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
+
+    # (e) the scaling report on one card
+    rep = timed("scaling report", lambda: scaling_report(
+        SHARD_NTT_LOG, SHARD_MSM_LOG, (1, 2, 4), log=log))
+    out["scaling"] = rep
+    log(f"[shard] scaling on one card (NTT 2^{SHARD_NTT_LOG} elems/s, MSM "
+        f"2^{SHARD_MSM_LOG} pts/s): ntt {rep['ntt']}, msm {rep['msm']}, "
+        f"efficiency {rep['efficiency']}")
+    out["total_s"] = time.time() - t_phase
+    out["launches"] = counts
+    log(f"[shard] seconds {({k: round(v, 2) for k, v in out['seconds'].items()})}")
+    log(f"[shard] peak GiB per rank {out['peak_gib']}")
+    log(f"[shard] launches per path, summed over ranks: {counts}")
+    log(f"[shard] phase {out['total_s']:.1f}s")
+    report["shard"] = out
+    return counts
+
+
 def check_msm_kernels(dev, gen, srs, tables, latency_us: float) -> dict:
     """B3s and B4s at the two MSM shapes the bench adds, against their
     plain versions, bounded as `check_kernels` bounds them: 2^16 points at
@@ -1349,6 +1520,7 @@ def main() -> int:
     keyfile_phase(dev, report, cfg)
     golden_check(dev, report)
     launches2 = cfg["launches"]
+    proof2 = cfg["proof"]
     del cfg
     torch.cuda.empty_cache()
     srs17 = config3_phase(dev, report)
@@ -1374,6 +1546,10 @@ def main() -> int:
     t0 = time.time()
     bench_phase(dev, report, smi)
     phase_s["bench"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    shard_counts = shard_phase(dev, report, proof2)
+    phase_s["shard"] = time.time() - t0
     log(f"[phases] seconds {phase_s}; setup(20) "
         f"{report['verify_msm']['setup20_s']:.2f}s")
     report["total_s"] = time.time() - t_start
@@ -1384,6 +1560,7 @@ def main() -> int:
              "verify_msm 2^20": report["verify_msm"]["2^20"]["launches"]}
     for name, res in report["bench"]["results"].items():
         paths[f"bench {name}, per call"] = res["launches"]
+    paths.update(shard_counts)
     rows = kernel_rows(checks, probe, launches2,
                        report["config3"]["launches"], paths)
     report["kernel_rows"] = rows

@@ -1,0 +1,244 @@
+"""The port's `shard/` on gloo ranks of the CPU against the JAX package.
+
+Each mesh test starts D = 2 or 4 ranks (`run_on_mesh`, one spawned process
+each, a deadline of its own) once per D and runs every sharded path there
+(`shard.paths.sequence`); the tests then hold the ranks' results against:
+  * a numpy model of the tiled all-to-all, for each (split, concat) pair
+    the four-step NTT uses;
+  * the JAX `ntt_sharded` on the conftest's virtual mesh (`make_mesh(D)`)
+    and its `_twiddle_matrix`, and the port's single-device `ntt`, bit for
+    bit; the inverse round trip;
+  * the JAX package's `curve/host.py` `msm` in affine form, for
+    `msm_sharded` and `msm_many_sharded` over 8·D points;
+  * the unsharded gate x·(next(x) + x) and `np.roll`, for the halo
+    exchange (rotations forward, backward and by a whole block).
+Inputs come from `np.random.default_rng(seed)`; tolerance 0 everywhere.
+The launcher must raise within its deadline when a rank raises or runs
+past it.
+"""
+
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tinyram_tpu.curve import host as jhost
+from tinyram_tpu.shard import make_mesh as jmake_mesh
+from tinyram_tpu.shard import ntt_sharded as jntt_sharded
+from tinyram_tpu.shard.ntt import _twiddle_matrix
+from tinyram_tpu_torch.curve.vesta import from_affine_host
+from tinyram_tpu_torch.field import FP
+from tinyram_tpu_torch.ipa.srs import _hash_to_curve
+from tinyram_tpu_torch.poly.ntt import ntt
+from tinyram_tpu_torch.shard import (RankError, backend_for, rank_devices,
+                                     run_on_mesh)
+from tinyram_tpu_torch.shard import paths
+from tinyram_tpu_torch.shard.ntt import _split_rc
+from tinyram_tpu_torch.shard.rows import gate_eval
+
+torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
+
+DEADLINE_S = 300.0  # every mesh run here ends well inside it
+LOG_NS = (6, 8)
+# (local shape, split axis, concat axis): the three exchanges of the
+# four-step NTT on a (16, n/D) block and on a (16, B, n/D) batch
+A2A_CASES = [((16, 4, 8), 2, 1), ((16, 8, 4), 1, 2), ((16, 3, 4, 8), 3, 2),
+             ((16, 3, 8, 4), 2, 3)]
+B = 3  # msm_many columns
+SHIFTS = (-3, -1, 2, 32)  # rotations of the halo exchange (32: a whole block)
+
+
+def _limbs(rng, shape):
+    limbs = rng.integers(0, 1 << 16, size=(16,) + tuple(shape), dtype=np.int64)
+    limbs[15] &= 0x3FFF  # canonical: below 2^254 < p
+    return limbs.astype(np.int32)
+
+
+def _points(rng, n):
+    """n affine points k·G (one of them the identity) for random k."""
+    base = _hash_to_curve(b"shard-test", 0)
+    pts = [jhost.scalar_mul(int(k), base)
+           for k in rng.integers(1, 1 << 62, size=n)]
+    pts[n // 2] = None
+    return pts
+
+
+def _ints(limbs):
+    """Plain ints of (16, ...) limbs, last axis innermost."""
+    flat = np.asarray(limbs, dtype=np.int64).reshape(16, -1)
+    return [sum(int(flat[i, j]) << (16 * i) for i in range(16))
+            for j in range(flat.shape[1])]
+
+
+def _inputs(D):
+    rng = np.random.default_rng(100 + D)
+    a2a = [rng.integers(0, 1 << 16, size=(D,) + shape).astype(np.int32)
+           for shape, _, _ in A2A_CASES]
+    cols = {log_n: _limbs(rng, (1 << log_n,)) for log_n in LOG_NS}
+    batch = _limbs(rng, (2, 1 << LOG_NS[0]))
+    pts = _points(rng, 8 * D)
+    pb = np.stack([c.numpy() for c in from_affine_host(pts)])
+    sc = _limbs(rng, (8 * D,))
+    sc[:, 1] = 0  # one zero scalar
+    sc_many = _limbs(rng, (B, 8 * D))
+    gate = _limbs(rng, (32 * D,))
+    return dict(a2a=a2a, cols=cols, batch=batch, pts=pts, pb=pb, sc=sc,
+                sc_many=sc_many, gate=gate)
+
+
+def _calls(inp):
+    calls = [(paths.exchange, (x, s, c))
+             for x, (_, s, c) in zip(inp["a2a"], A2A_CASES)]
+    for log_n, a in inp["cols"].items():
+        calls += [(paths.ntt_path, (a, False)), (paths.ntt_path, (a, True)),
+                  (paths.twiddles, (log_n, False)),
+                  (paths.twiddles, (log_n, True))]
+    calls += [(paths.ntt_path, (inp["batch"], False)),
+              (paths.msm_path, (inp["sc"], inp["pb"])),
+              (paths.msm_path, (inp["sc_many"], inp["pb"])),
+              (paths.gate_path, (inp["gate"],))]
+    calls += [(paths.roll_path, (inp["gate"], s)) for s in SHIFTS]
+    return calls
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda d: f"D{d}")
+def mesh_run(request):
+    """(D, inputs, {name: [rank results]}) of one start of D ranks."""
+    D = request.param
+    inp = _inputs(D)
+    ranks = run_on_mesh(paths.sequence, D, _calls(inp), device="cpu",
+                        timeout_s=DEADLINE_S)
+    names = [f"a2a{i}" for i in range(len(A2A_CASES))]
+    for log_n in LOG_NS:
+        names += [f"ntt{log_n}", f"intt{log_n}", f"tw{log_n}", f"itw{log_n}"]
+    names += ["ntt_batch", "msm", "msm_many", "gate"]
+    names += [f"roll{s}" for s in SHIFTS]
+    return D, inp, {name: [r[i] for r in ranks] for i, name in enumerate(names)}
+
+
+def _a2a_model(xs, split, concat):
+    """Tiled all-to-all: rank j gets chunk j of every rank's split axis,
+    joined along the concat axis in rank order."""
+    D = len(xs)
+    chunks = [np.split(x, D, axis=split) for x in xs]
+    return [np.concatenate([chunks[i][j] for i in range(D)], axis=concat)
+            for j in range(D)]
+
+
+@pytest.mark.parametrize("case", range(len(A2A_CASES)))
+def test_all_to_all_matches_numpy_model(mesh_run, case):
+    D, inp, res = mesh_run
+    _, split, concat = A2A_CASES[case]
+    want = _a2a_model(list(inp["a2a"][case]), split, concat)
+    got = res[f"a2a{case}"]
+    assert len(got) == D
+    for r in range(D):
+        np.testing.assert_array_equal(got[r], want[r])
+
+
+@pytest.mark.parametrize("log_n", LOG_NS)
+def test_ntt_sharded_matches_jax_and_single_device(mesh_run, log_n):
+    D, inp, res = mesh_run
+    a = inp["cols"][log_n]
+    want_jax = np.asarray(jntt_sharded(
+        jmake_mesh(D), jnp.asarray(a.astype(np.uint32)))).astype(np.int64)
+    want = ntt(FP, torch.as_tensor(a)).numpy()
+    np.testing.assert_array_equal(want.astype(np.int64), want_jax)
+    for out, stats in res[f"ntt{log_n}"]:
+        np.testing.assert_array_equal(out, want)
+        assert stats["seconds"] > 0 and stats["peak_bytes"] == 0
+
+
+@pytest.mark.parametrize("log_n", LOG_NS)
+def test_intt_sharded_roundtrip(mesh_run, log_n):
+    _, inp, res = mesh_run
+    a = inp["cols"][log_n]
+    want = ntt(FP, torch.as_tensor(a), inverse=True).numpy()
+    for out, _ in res[f"intt{log_n}"]:
+        np.testing.assert_array_equal(out, want)
+    back = ntt(FP, torch.as_tensor(res[f"intt{log_n}"][0][0])).numpy()
+    np.testing.assert_array_equal(back, a)
+
+
+@pytest.mark.parametrize("log_n", LOG_NS)
+def test_twiddle_blocks_match_jax_table(mesh_run, log_n):
+    """Each rank's device-built block equals its columns of the JAX
+    package's host-built (16, R, C) table, both directions."""
+    D, _, res = mesh_run
+    _, C = _split_rc(log_n)
+    for name, inverse in ((f"tw{log_n}", False), (f"itw{log_n}", True)):
+        table = _twiddle_matrix("Fp", log_n, inverse).astype(np.int64)
+        for r, blk in enumerate(res[name]):
+            want = table[:, :, r * C // D:(r + 1) * C // D]
+            np.testing.assert_array_equal(blk.astype(np.int64), want)
+
+
+def test_ntt_sharded_batch_axis(mesh_run):
+    """A (16, 2, n) batch: leading axes replicated, the last sharded."""
+    _, inp, res = mesh_run
+    want = ntt(FP, torch.as_tensor(inp["batch"])).numpy()
+    for out, _ in res["ntt_batch"]:
+        np.testing.assert_array_equal(out, want)
+
+
+def test_msm_sharded_matches_host_oracle(mesh_run):
+    D, inp, res = mesh_run
+    want = jhost.msm(_ints(inp["sc"]), inp["pts"])
+    assert want is not None
+    for got, stats in res["msm"]:
+        assert got == [want]
+        assert stats["launches"]["B5l"] == 0  # the CPU runs plain versions
+
+
+def test_msm_many_sharded_matches_host_oracle(mesh_run):
+    _, inp, res = mesh_run
+    sc = inp["sc_many"]
+    want = [jhost.msm(_ints(sc[:, b]), inp["pts"]) for b in range(B)]
+    for got, _ in res["msm_many"]:
+        assert got == want
+
+
+def test_gate_eval_halo_matches_unsharded(mesh_run):
+    _, inp, res = mesh_run
+    x = torch.as_tensor(inp["gate"])
+    want = gate_eval(x).numpy()
+    np.testing.assert_array_equal(
+        want, FP.mul(x, FP.add(torch.roll(x, -1, -1), x)).numpy())
+    for got in res["gate"]:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_rolled_blocks_match_roll(mesh_run, shift):
+    _, inp, res = mesh_run
+    want = np.roll(inp["gate"], -shift, axis=-1)
+    for got in res[f"roll{shift}"]:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_launcher_raises_when_a_rank_raises():
+    t0 = time.time()
+    with pytest.raises(RankError, match="rank 1 fails on purpose"):
+        run_on_mesh(paths.raise_on_rank, 2, 1, device="cpu", timeout_s=120)
+    assert time.time() - t0 < 120
+
+
+def test_launcher_raises_at_its_deadline():
+    """Ranks still starting at the deadline are stopped and reported."""
+    t0 = time.time()
+    with pytest.raises(RankError, match="still running after"):
+        run_on_mesh(paths.raise_on_rank, 2, 2, device="cpu", timeout_s=0.5)
+    assert time.time() - t0 < 30
+
+
+def test_backend_follows_the_device_map():
+    assert backend_for(rank_devices(2, "cpu")) == "gloo"
+    assert backend_for(["cuda:0", "cuda:0"]) == "gloo"  # ranks share a card
+    assert backend_for(["cuda", "cuda:0"]) == "gloo"
+    assert backend_for(["cuda:0", "cuda:1"]) == "nccl"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rank_devices(2)

@@ -13,6 +13,11 @@ Port of `tinyram_tpu/ipa/ipa.py` (same protocol, same transcript traffic):
 The prover never folds G in the group: each round's two inner products
 with the folded G are one batched MSM over the original G with
 gathered, masked scalars.  Randomness comes from `rng.randbelow`.
+
+The prover's MSMs (each round's pair and `commit_many`'s passes) go
+through `_msm_dispatch`: under a mesh context whose size divides the
+point count, the point-sharded MSM of `shard/msm.py` over this rank's
+block of scalars and generators.
 """
 
 from __future__ import annotations
@@ -32,6 +37,21 @@ from .srs import SRS
 
 P = FP.modulus
 COMMIT_CHUNK = 64  # columns per batched MSM pass (reference default)
+
+
+def _msm_dispatch(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
+    """`msm_many` of (16, B, N) scalars, or, when a mesh context is active
+    and its size divides N, the point-sharded `msm_many_sharded` of this
+    rank's block."""
+    from ..shard.context import current_mesh
+
+    mesh = current_mesh()
+    if mesh is not None and scalars_plain.shape[-1] % mesh.size == 0:
+        from ..shard.msm import msm_many_sharded
+
+        return msm_many_sharded(mesh, mesh.block(scalars_plain),
+                                PointBatch(*(mesh.block(c) for c in points)))
+    return msm_many(scalars_plain, points)
 
 
 def commit(srs: SRS, coeffs: torch.Tensor, blind: int = 0,
@@ -98,7 +118,7 @@ def open_poly(
         sL = FP.decode(tree_sum(FP, FP.mul(a_lo, b_hi))[:, None])[0]
         sR = FP.decode(tree_sum(FP, FP.mul(a_hi, b_lo))[:, None])[0]
         lr = to_affine_host(
-            msm_many(FP.from_mont(torch.stack([wL, wR], dim=1)), srs.g)
+            _msm_dispatch(FP.from_mont(torch.stack([wL, wR], dim=1)), srs.g)
         )
         L_base, R_base = lr[0], lr[1]
         xi_l, xi_r = rng.randbelow(P), rng.randbelow(P)
@@ -217,7 +237,7 @@ def commit_many(srs: SRS, coeff_list, blinds=None,
         if pad_cols:
             chunk = chunk + [chunk[0]] * pad_cols
         stack = torch.stack(chunk, dim=1)  # (16, B, n)
-        res = to_affine_host(msm_many(FP.from_mont(stack), srs.g))
+        res = to_affine_host(_msm_dispatch(FP.from_mont(stack), srs.g))
         out.extend(res[: len(res) - pad_cols] if pad_cols else res)
     if blinds is not None:
         out = [

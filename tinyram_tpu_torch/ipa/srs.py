@@ -146,6 +146,17 @@ def _gen_host(k: int, cache_dir: str | None):
     return pts[:n], pts[n], pts[n + 1]
 
 
+def cache_generators(k: int, cache_dir: str = CACHE_DIR) -> str:
+    """The path of the SRS of 2^k generators on disk in `cache_dir`,
+    written (from the generators hashed so far, or hashed now) if it is
+    missing: processes started later, such as the ranks of a mesh, load
+    it instead of hashing."""
+    path = os.path.join(cache_dir, f"srs_vesta_k{k}.npz")
+    if not os.path.exists(path):
+        _gen_host(k, cache_dir)
+    return path
+
+
 _SRS_CACHE: dict = {}
 
 

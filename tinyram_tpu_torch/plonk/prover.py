@@ -1,10 +1,17 @@
 """PLONKish prover: `create_proof` in PyTorch.
 
-Port of `tinyram_tpu/plonk/prover.py` (single device; the reference's mesh
-branch is not ported yet).  Same protocol, same transcript traffic, same
-order of random draws: the only randomness is `rng.randbelow` (the
-`secrets` module by default), so a seeded `rng` reproduces the reference's
-proof bytes under the same seeded `secrets.randbelow`.
+Port of `tinyram_tpu/plonk/prover.py`, with its mesh branch: with
+`mesh=`, every rank of the mesh runs this same prover under the mesh
+context, so the domain transforms become the all-to-all sharded NTT and
+the commit and IPA MSMs point-sharded partials (`shard/`); the transforms'
+outputs are gathered, so the elementwise phases still hold whole columns
+on every rank (the row-sharded quotient phase is not ported yet).  Same
+protocol, same transcript traffic, same order of random draws: the only
+randomness is `rng.randbelow` (the `secrets` module by default), so a
+seeded `rng` reproduces the reference's proof bytes under the same seeded
+`secrets.randbelow`.  Under a mesh, rank 0 draws from `rng` and
+broadcasts each batch (`shard.mesh.MeshRng`), so every rank returns the
+single-device bytes.
 
 The reference compiles each constraint block into one XLA program; here
 every block is evaluated eagerly, one field operation per call (kernel B1
@@ -372,8 +379,20 @@ def create_proof(
     srs: SRS, pk: ProvingKey, asg: Assignment,
     tw: TranscriptWriter | None = None, rng=secrets,
     ext_chunk: int = EXT_CHUNK, gate_slab: int = GATE_SLAB,
-    commit_chunk: int = COMMIT_CHUNK, phase_hook=None,
+    commit_chunk: int = COMMIT_CHUNK, phase_hook=None, mesh=None,
 ) -> bytes:
+    if mesh is not None:
+        # sharded mode: every rank runs this prover on the same inputs
+        # under the mesh context (domain transforms and MSMs shard), with
+        # rank 0's draws from `rng` broadcast to all ranks
+        from ..shard.context import mesh_context
+        from ..shard.mesh import MeshRng
+
+        with mesh_context(mesh):
+            return create_proof(srs, pk, asg, tw, rng=MeshRng(mesh, rng),
+                                ext_chunk=ext_chunk, gate_slab=gate_slab,
+                                commit_chunk=commit_chunk,
+                                phase_hook=phase_hook)
     cs = pk.vk.cs
     dom = pk.domain
     dev = dom.device
@@ -396,6 +415,9 @@ def create_proof(
     def _rand_tail(count: int) -> list[int]:
         if bf == 0:
             return [0] * count
+        many = getattr(rng, "randbelow_many", None)  # one batch on a mesh
+        if many is not None:
+            return many(P, count)
         return [rng.randbelow(P) for _ in range(count)]
 
     advice = [a.to(dev) for a in asg.advice]

@@ -1,9 +1,13 @@
 """Evaluation domains for the PLONKish prover.
 
-Port of `tinyram_tpu/poly/domain.py` (single device: the reference's mesh
-branch for the sharded NTT is not ported yet), with its `domain_cache`:
-one `Domain` per (field, k, extended k, device), so keygen, the key
-loader and the verifier share one domain and its cached tables.
+Port of `tinyram_tpu/poly/domain.py`, with its mesh branch: under a mesh
+context (`shard/context.py`) a transform whose four-step split the mesh
+divides runs as the all-to-all sharded NTT on this rank's block of its
+input, and the output is gathered, so the prover sees whole columns (the
+row-sharded quotient phase, which would keep them sharded, is not ported
+yet).  With its `domain_cache`: one `Domain` per (field, k, extended k,
+device), so keygen, the key loader and the verifier share one domain and
+its cached tables.
 
 A `Domain` owns the size-n subgroup H (circuit rows) and the extended coset
 g·H_ext used for quotient evaluation.  The coset generator is the field's
@@ -43,12 +47,30 @@ class Domain:
 
     # ------------------------------------------------------------ transforms
 
+    def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
+        """Single-device NTT, or, under a mesh context whose size divides
+        the four-step split, the all-to-all sharded NTT of this rank's
+        block, gathered."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        if mesh is not None:
+            from ..shard.ntt import _split_rc, ntt_sharded
+
+            n = a.shape[-1]
+            D = mesh.size
+            R, C = _split_rc(n.bit_length() - 1)
+            if self.field.params.name == "Fp" and R % D == 0 and C % D == 0:
+                out = ntt_sharded(mesh, mesh.block(a), inverse, self.field)
+                return mesh.all_gather(out, -1)
+        return ntt(self.field, a, inverse=inverse)
+
     def lagrange_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on H (natural ω^i order) -> coefficients."""
-        return ntt(self.field, a, inverse=True)
+        return self._ntt(a, True)
 
     def coeff_to_lagrange(self, a: torch.Tensor) -> torch.Tensor:
-        return ntt(self.field, a, inverse=False)
+        return self._ntt(a, False)
 
     def coeff_to_extended(self, a: torch.Tensor) -> torch.Tensor:
         """Coefficients (len n or less) -> evaluations on the coset g·H_ext."""
@@ -58,11 +80,11 @@ class Domain:
                 [a, self.field.zeros(a.shape[1:-1] + (pad,), a.device)], dim=-1
             )
         a = coeff_scale(self.field, a, self.g_coset)
-        return ntt(self.field, a, inverse=False)
+        return self._ntt(a, False)
 
     def extended_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on g·H_ext -> coefficients (length n_ext)."""
-        a = ntt(self.field, a, inverse=True)
+        a = self._ntt(a, True)
         return coeff_scale(self.field, a, self.g_coset_inv)
 
     # ---------------------------------------------------------- vanishing poly

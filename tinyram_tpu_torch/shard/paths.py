@@ -1,0 +1,196 @@
+"""Rank bodies for `run_on_mesh`: each runs one sharded path on this rank.
+
+Inputs are replicated on every rank (numpy arrays and Python values, as
+`run_on_mesh` pickles them); each body takes this rank's block, runs the
+sharded function, and returns numpy arrays or host values.  The timed
+paths return, beside their output, what `measured` saw on this rank: the
+seconds (after the device finished), the kernel launch counts (reset at
+the start of the path) and the peak device memory.  Used by
+`entry.dryrun_multichip`, `shard.scaling`, the tests and `chip_smoke.py`.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..curve.vesta import PointBatch, to_affine_host
+from ..ipa.srs import CACHE_DIR, setup
+from .mesh import Mesh
+from .msm import msm_many_sharded, msm_sharded
+from .ntt import _twiddle_block, ntt_sharded
+from .rows import gate_eval_sharded, rolled
+
+
+class SeededRng:
+    """`randbelow(n)` from a seeded `random.Random`: the stream of the
+    recorded JAX proofs (`scripts/torch_golden*.py`) and of
+    `chip_smoke.py`."""
+
+    def __init__(self, seed: int):
+        self._r = random.Random(seed)
+
+    def randbelow(self, n: int) -> int:
+        return self._r.randrange(n)
+
+
+def _sync(mesh: Mesh) -> None:
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+
+
+def measured(mesh: Mesh, fn, *args):
+    """(fn(*args), stats): launch counts reset before the call, seconds
+    taken after the device finished, and the peak device memory of the
+    call (0 on the CPU)."""
+    _sync(mesh)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    out = fn(*args)
+    _sync(mesh)
+    return out, {"seconds": time.time() - t0,
+                 "launches": kernels.launch_counts(),
+                 "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)
+                 if cuda else 0}
+
+
+def _tensor(mesh: Mesh, a: np.ndarray) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a), device=mesh.device)
+
+
+def exchange(mesh: Mesh, x_all: np.ndarray, split_axis: int,
+             concat_axis: int) -> np.ndarray:
+    """`Mesh.all_to_all` of rank r's input `x_all[r]`."""
+    x = _tensor(mesh, x_all[mesh.rank])
+    return mesh.all_to_all(x, split_axis, concat_axis).cpu().numpy()
+
+
+def twiddles(mesh: Mesh, log_n: int, inverse: bool) -> np.ndarray:
+    """This rank's (16, R, C/D) twiddle block of the sharded NTT."""
+    return _twiddle_block(mesh, log_n, inverse).cpu().numpy()
+
+
+def ntt_path(mesh: Mesh, a: np.ndarray, inverse: bool = False):
+    """(the gathered `ntt_sharded` of the (16, ..., n) limbs `a`, stats)."""
+    a_t = _tensor(mesh, a)
+    out, stats = measured(mesh, lambda: mesh.all_gather(
+        ntt_sharded(mesh, mesh.block(a_t), inverse), -1))
+    return out.cpu().numpy(), stats
+
+
+def msm_path(mesh: Mesh, scalars: np.ndarray, points: np.ndarray | None = None,
+             k: int | None = None, cache_dir: str | None = CACHE_DIR):
+    """(the affine sums, stats) of the sharded MSM of plain scalar limbs
+    (16, N) (`msm_sharded`: one sum) or (16, B, N) (`msm_many_sharded`: B
+    sums) against `points` ((3, 16, N) limbs of an affine-or-identity
+    PointBatch) or, when None, the 2^k generators of `setup(k, cache_dir)`
+    (loaded before the timed call)."""
+    sc = _tensor(mesh, scalars)
+    if points is None:
+        pts = setup(k, mesh.device, cache_dir=cache_dir).g
+    else:
+        pts = PointBatch(*(_tensor(mesh, c) for c in points))
+    blk = PointBatch(*(mesh.block(c) for c in pts))
+    fn = msm_many_sharded if sc.dim() == 3 else msm_sharded
+    out, stats = measured(mesh, fn, mesh, mesh.block(sc), blk)
+    if sc.dim() == 2:
+        out = PointBatch(*(c[:, None] for c in out))
+    return to_affine_host(out), stats
+
+
+def roll_path(mesh: Mesh, x: np.ndarray, shift: int) -> np.ndarray:
+    """The gathered `rolled` blocks of the column `x`: roll(x, -shift)."""
+    out = rolled(mesh, mesh.block(_tensor(mesh, x)), shift)
+    return mesh.all_gather(out, -1).cpu().numpy()
+
+
+def gate_path(mesh: Mesh, x: np.ndarray) -> np.ndarray:
+    """The gathered row-sharded gate x·(next(x) + x) of the column `x`."""
+    out = gate_eval_sharded(mesh, mesh.block(_tensor(mesh, x)))
+    return mesh.all_gather(out, -1).cpu().numpy()
+
+
+def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
+    """The k = 6 toy circuit (`plonk/toy.py`) proved by
+    `create_proof(mesh=)`, under `SeededRng(seed)` (`secrets` when None).
+    Rank 0 runs the single-device `verify_proof` on it, the last rank
+    checks that a changed public input is rejected (rank 0 does both on
+    one rank).  Returns the proof bytes, the checks and the stats."""
+    import secrets
+
+    from ..plonk import create_proof, keygen, verify_proof
+    from ..plonk.toy import K, P, toy_circuit
+
+    toy = toy_circuit()
+    srs = setup(K, mesh.device)
+    pk = keygen(srs, toy.cs, toy.fixed_assignment(mesh.device))
+    asg = toy.assignment(device=mesh.device)
+    rng = secrets if seed is None else SeededRng(seed)
+    proof, stats = measured(mesh, lambda: create_proof(
+        srs, pk, asg, rng=rng, mesh=mesh))
+    good = toy.public_values(toy.witness_values())
+    bad = [(good[0] + 1) % P] + good[1:]
+    out = {"proof": proof, "stats": stats, "verified": None, "rejected": None}
+    if mesh.rank == 0:
+        out["verified"] = verify_proof(srs, pk.vk, [good], proof)
+    if mesh.rank == mesh.size - 1:
+        out["rejected"] = not verify_proof(srs, pk.vk, [bad], proof)
+    return out
+
+
+def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
+                 cache_dir: str | None = CACHE_DIR) -> dict:
+    """BASELINE config `config` (its program, steps and k, W = 24) proved
+    by `create_proof(mesh=)` under `SeededRng(seed)`, the SRS from
+    `cache_dir`.  Rank 0 verifies the proof, the last rank checks that
+    answer + 1 is rejected.  Returns the proof bytes, the checks and the
+    stats, with the seconds of the prover's seven phases on this rank."""
+    from ..plonk import create_proof
+    from ..tinyram.circuit import TinyRamCircuit
+    from ..tinyram.emulator import eval_program
+    from ..tinyram.prove_config import CONFIGS, REG_COUNT, WORD_BITS
+    from ..utils.profiling import counters
+
+    program, steps_log2, k = CONFIGS[config]
+    prog = program(1 << steps_log2, word_bits=WORD_BITS)
+    trace = eval_program(prog, WORD_BITS, REG_COUNT)
+    circ = TinyRamCircuit(WORD_BITS, REG_COUNT, k=k)
+    srs = setup(circ.k, mesh.device, cache_dir=cache_dir)
+    pk = circ.keygen(srs)
+    asg = circ.assignment(trace, mesh.device)
+    counters.ops.clear()
+    counters.seconds.clear()
+    proof, stats = measured(mesh, lambda: create_proof(
+        srs, pk, asg, rng=SeededRng(seed), mesh=mesh))
+    stats["phases"] = {name[len("prover."):]: v["seconds"]
+                       for name, v in counters.report().items()
+                       if name.startswith("prover.")}
+    out = {"proof": proof, "stats": stats, "verified": None, "rejected": None,
+           "k": circ.k}
+    if mesh.rank == 0:
+        out["verified"] = circ.verify(srs, pk, prog, trace.answer, proof)
+    if mesh.rank == mesh.size - 1:
+        out["rejected"] = not circ.verify(srs, pk, prog, trace.answer + 1,
+                                          proof)
+    return out
+
+
+def raise_on_rank(mesh: Mesh, rank: int) -> None:
+    """Rank `rank` raises; the others wait for it in a barrier, which it
+    never reaches (the launcher's check of a failing rank)."""
+    if mesh.rank == rank:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    mesh.barrier()
+
+
+def sequence(mesh: Mesh, calls: list) -> list:
+    """[fn(mesh, *args) for (fn, args) in calls]: several paths in one
+    start of the ranks."""
+    return [fn(mesh, *args) for fn, args in calls]
