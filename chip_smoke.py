@@ -91,11 +91,29 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     `create_proof(mesh=)` at D = 2 (the bytes of phase 4's proof), and the
     scaling report at D = 1, 2, 4.  Each path's counts are reset in every
     rank before it, summed over the ranks, and must show its kernels.
+16. The digit-matmul NTT (M1) and the batched-affine MSM (A1, A2), with
+    the counts reset before each path (`mxu_affine_phase`): M1 against its
+    plain version on a seeded sample of 64 columns at every stage shape of
+    a 2^20, a 2^16 and a 16 x 2^18 transform (R = 128, 64, 32, 16), with
+    its int8 bound and `torch._int_mm` of the 2^20 stages' digit product
+    alone; the `bench_mxu_ntt` twin (mxu equal to B2 bit for bit, the
+    inverse round trip, both rates); A2 on 2^17 lanes with substituted
+    lanes (every d·d^-1 is one) and with zeros left in; A1 on 256 sampled
+    lanes of the affine plan of 2^20 (L = 32, M = 2^17) and on every lane
+    of config 3's commit scan (L = 128, M = 2^15) against B3s as points,
+    each timed beside B3s; `msm` and `msm_many` with `affine=True` at 2^16
+    and 2^20 over `setup(20)`'s generators, equal to `affine=False` (and
+    at 2^16 to the host oracle); the `bench_msm` twin at 2^12 and 2^16;
+    and config 2 proved by `create_proof(ntt_method="mxu",
+    msm_affine=True)`, which must give phase 4's bytes, verify, reject
+    answer + 1, launch M1 and A1 and no B2.  The default config-2 proof
+    of phase 4 must have launched none of M1, A1, A2.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line
 (each kernel at config 2's shapes, its launches in one config-2 proof and,
 as "launches_config3", in one config-3 proof, and as "launches_paths" in
-each path of 12-15), and as its last line
+each path of 12-16; M1, A1 and A2 at phase 16's shapes, with the launches
+of the mxu/affine proof (A2: of the bench_msm twin)), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
 the last line; without a CUDA device it exits 1 too.
 A detailed report goes to chiprun_out/chip_smoke_report.json.
@@ -136,6 +154,12 @@ KERNELS = {  # id -> (name, source, TPU kernel it replaces)
            "tinyram_tpu/curve/pallas_point.py:324"),
     "B6h": ("pdouble_horner", "tinyram_tpu_torch/csrc/point.cu",
             "tinyram_tpu/curve/pallas_point.py:324"),
+    "M1": ("mxu_dft_stage", "tinyram_tpu_torch/csrc/mxu_ntt.cu",
+           "tinyram_tpu/poly/mxu_ntt.py:152"),
+    "A1": ("affine_bucket_scan", "tinyram_tpu_torch/csrc/affine.cu",
+           "tinyram_tpu/curve/msm.py:351"),
+    "A2": ("batch_inv", "tinyram_tpu_torch/csrc/affine.cu",
+           "tinyram_tpu/curve/msm.py:239"),
     "P1": ("vpu_chain", "tinyram_tpu_torch/csrc/vpu_probe.cu",
            "scripts/bench_vpu.py:45"),
     "P2": ("vpu_ops", "tinyram_tpu_torch/csrc/vpu_probe.cu",
@@ -153,6 +177,10 @@ BENCH_KERNELS = ("B1", "B2") + MSM_KERNELS
 # launched by the config-2 proof at D = 2: its local transforms have 128-256
 # points, under B2's 512, so no B2
 SHARD_PROOF_KERNELS = ("B1", "B3s", "B4", "B4s", "B5", "B5l", "B6h")
+# phase 16's kernels (new device code: the JAX computes them in XLA) and the
+# path whose launches their rows report
+NEW_KERNELS = {"M1": "config2 proof mxu+affine",
+               "A1": "config2 proof mxu+affine", "A2": "bench_msm 2^12, 2^16"}
 # the probe case each of P1, P2 reports in the kernels line
 PROBE_ROW = {"P1": ("mul", 512), "P2": ("u32mul", 256)}
 # SASS function of each kernel (a part of its mangled name)
@@ -1447,14 +1475,302 @@ def check_msm_kernels(dev, gen, srs, tables, latency_us: float) -> dict:
     return out
 
 
-def kernel_rows(checks, probe, launches, launches3, paths) -> list:
+MXU_STAGES = {  # (R, L) of each M1 stage of the bench's transforms
+    "2^20": [(128, 8192), (64, 16384)],
+    "2^16": [(128, 512), (32, 2048), (16, 4096)],
+    "16x2^18": [(128, 32768), (64, 65536), (32, 131072)],
+}
+INT8_OPS_PER_S = 1979e12  # published dense int8 tensor-core rate (700 W)
+AFFINE_PLAN = (32, 1 << 17)  # (L, M) of the affine scan of 2^20, c = 16
+CONFIG3_SCAN = (128, 1 << 15)  # (L, M) of config 3's commit scan (B3s)
+# Montgomery products of one affine step per lane (x², λ, λ², λ·(x - x3))
+# and of Montgomery's trick per lane (the reference's product tree), and of
+# the Fermat inversion shared by a step (255 squarings, 127 products)
+AFFINE_STEP, TRICK, FERMAT = 4, 3, 382
+
+
+def mxu_affine_phase(dev, report, tables, proof2: bytes, launches2: dict):
+    """Phase 16: the digit-matmul NTT (M1) and the batched-affine MSM (A1,
+    A2) on the card; returns (kernel checks, path launch counts)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import torch_point_sweep as sweep
+    from tinyram_tpu_torch import bench_msm, bench_mxu_ntt, kernels
+    from tinyram_tpu_torch.curve import cuda_affine, cuda_point as cp
+    from tinyram_tpu_torch.curve.vesta import PointBatch, to_affine_host
+    from tinyram_tpu_torch.field.field import FP, FQ, FQ_PLAIN
+    from tinyram_tpu_torch.ipa import setup
+    from tinyram_tpu_torch.plonk import create_proof
+    from tinyram_tpu_torch.poly import cuda_mxu, mxu_ntt
+    from tinyram_tpu_torch.probes import device_ms
+    from tinyram_tpu_torch.tinyram import TinyRamCircuit, eval_program
+    from tinyram_tpu_torch.tinyram.bench_programs import config2_program
+    from tinyram_tpu_torch.verify_msm import oracles
+
+    tmsm = importlib.import_module("tinyram_tpu_torch.curve.msm")
+    _, product, _ = tables
+    gen = np.random.default_rng(SEED + 16)
+    out, paths, t = {}, {}, {}
+    record = functools.partial(record_row, out, tag="mxu/affine kernel")
+    t_phase = time.time()
+    for kid in ("M1", "A1", "A2"):
+        if launches2.get(kid, 0):
+            raise AssertionError(f"the default config-2 proof launched {kid}")
+
+    # (1) M1 at every stage shape of the 2^20, 2^16 and 16 x 2^18 transforms
+    t0 = time.time()
+    errs = []
+    for name, stages in MXU_STAGES.items():
+        for R, L in stages:
+            log_r = R.bit_length() - 1
+            x = device_limbs(gen, (R, L), dev)
+            idx = sample(gen, L, 64, dev)
+            kid = f"M1 {R}x{L}"
+            record(kid, lambda: cuda_mxu.dft_stage_m1(x, "Fp", log_r, False),
+                   lambda: mxu_ntt.dft_stage_plain(
+                       x[:, :, idx], mxu_ntt._field("Fp"), log_r, False),
+                   5, 1, 2 * FE_BYTES * R * L, collections.Counter(), 0,
+                   pick=lambda y: y[:, :, idx], plain_lanes=len(idx))
+            ops = 2 * mxu_ntt.N_DIGITS ** 2 * R * R * L
+            # the bound: the int8 products at the tensor cores' rate
+            out[kid].update(bound(
+                2 * FE_BYTES * R * L + 37 * max(R, 16) * max(R, 32),
+                ops / INT8_OPS_PER_S * 1e3))
+            out[kid].update(transform=name, int8_ops=ops)
+            log(f"[mxu/affine kernel] {kid}: int8 bound "
+                f"{out[kid]['bound_ms']:.4f} ms ({out[kid]['bound_by']}), "
+                f"{out[kid]['bound_ms'] / out[kid]['ms']:.1%} of it")
+            errs.append(out[kid]["max_abs_err"])
+            if name == "2^20":  # the digit product alone, by the library
+                W7 = torch.as_tensor(mxu_ntt._dft_digit_matrix(
+                    "Fp", log_r, False), device=dev).reshape(37 * R, R)
+                X7 = mxu_ntt.limbs_to_digits7(x).permute(1, 0, 2).reshape(
+                    R, 37 * L).contiguous()
+                try:  # a yardstick only: its failure checks nothing
+                    ms = device_ms(lambda: torch._int_mm(W7, X7), 1)
+                except RuntimeError as exc:
+                    ms = None
+                    log(f"[mxu/affine kernel] torch._int_mm failed: {exc}")
+                out[kid]["digit_matmul_library_ms"] = ms
+                log(f"[mxu/affine kernel] {kid}: torch._int_mm of the digit "
+                    f"product alone ({37 * R}x{R} by {R}x{37 * L}): {ms} ms")
+                del W7, X7
+            del x
+            torch.cuda.empty_cache()
+    t["m1_stages"] = time.time() - t0
+    out["M1"] = dict(out["M1 128x8192"], max_abs_err=max(errs))
+
+    # (2) the bench_mxu_ntt twin: 2^16 and 2^20, then 16 x 2^18
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    rep = bench_mxu_ntt.run([16, 20], device=dev,
+                            log=lambda m: log(f"[bench_mxu_ntt] {m}"))
+    paths["bench_mxu_ntt 2^16, 2^20"] = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    rep16 = bench_mxu_ntt.run([18], cols=16, device=dev,
+                              log=lambda m: log(f"[bench_mxu_ntt] {m}"))
+    paths["bench_mxu_ntt 16x2^18"] = kernels.launch_counts()
+    report["bench_mxu_ntt"] = {"1": rep, "16": rep16}
+    t["bench_mxu_ntt"] = time.time() - t0
+    if not (rep["ok"] and rep16["ok"]):
+        raise AssertionError("ntt_mxu differs from the B2 ntt or its inverse")
+    for name in ("bench_mxu_ntt 2^16, 2^20", "bench_mxu_ntt 16x2^18"):
+        if not (paths[name]["M1"] and paths[name]["B1"]):
+            raise AssertionError(f"{name} never launched M1 or B1")
+
+    # (3) A2 on 2^17 lanes with substituted lanes, and zeros left in
+    t0 = time.time()
+    n = 1 << 17
+    d = device_limbs(gen, (n,), dev)
+    d[:, sample(gen, n, 64, dev)] = FQ.ones((64,), dev)  # substituted
+    record("A2", lambda: cuda_affine.batch_inverse(d),
+           lambda: tmsm.batch_inv(d), 5, 1, 2 * FE_BYTES * n,
+           product["B4"], TRICK * n + FERMAT * (n >> cuda_affine.group_log2(n)))
+    inv = cuda_affine.batch_inverse(d)
+    if not (FQ_PLAIN.mul(inv, d) == FQ.ones((n,), dev)).all():
+        raise AssertionError("A2: some d * d^-1 is not one")
+    z = d[:, :601].clone()
+    z[:, [7, 600]] = 0
+    zero_same = torch.equal(cuda_affine.batch_inverse(z), tmsm.batch_inv(z))
+    log(f"[mxu/affine kernel] A2 with zeros left in equals its plain "
+        f"version: {zero_same}")
+    if not zero_same:
+        raise AssertionError("A2 differs from its plain version on zeros")
+    del d, inv, z
+    t["a2"] = time.time() - t0
+
+    # (4) A1 at the affine plan of 2^20 (c = 16) and at config 3's commit
+    # scan, beside B3s on the same inputs
+    t0 = time.time()
+    srs = setup(20, dev)
+    for (L, M), lanes_w, c in ((AFFINE_PLAN, 1 << 15, 16),
+                               (CONFIG3_SCAN, 1 << 12, 16)):
+        same = sweep.bucket_same(gen, L, M, lanes_per_window=lanes_w, c=c,
+                                 device=dev)
+        pick = torch.as_tensor(gen.integers(0, srs.n, size=L * M), device=dev)
+        sx, sy = (g[:, pick].reshape(16, L, M).transpose(0, 1).contiguous()
+                  for g in (srs.g.x, srs.g.y))
+        del pick
+        n_same = int(same.sum())
+        kid = f"A1 {L}x{M}"
+        nbytes = L * M * (2 + 4 * FE_BYTES)
+        products = L * ((AFFINE_STEP + TRICK) * M + FERMAT)
+        if (L, M) == AFFINE_PLAN:  # the plain scan on a sample of lanes,
+            # run once (its Fermat chain of plain products takes seconds a
+            # step whatever the lanes) and timed as it runs
+            idx = sample(gen, M, 256, dev)
+            sync()
+            t1 = time.time()
+            want = tmsm.affine_scan_plain(same[:, idx], sx[:, :, idx],
+                                          sy[:, :, idx])
+            sync()
+            plain_ms = (time.time() - t1) * 1e3
+            record(kid, lambda: cuda_affine.affine_scan(same, sx, sy),
+                   lambda: want, 3, 1, nbytes, product["B4"], products,
+                   plain_ms=plain_ms,
+                   pick=lambda r: (r[0][..., idx], r[1][..., idx],
+                                   r[2][..., idx]), plain_lanes=len(idx))
+            del want
+        else:  # the plain scan would take minutes: against B3s on all lanes
+            # as points, limbs first: x·Z = X and y·Z = Y, or both identity
+            ax, ay, ainf = cuda_affine.affine_scan(same, sx, sy)
+            px, py, pz = (c.transpose(0, 1)
+                          for c in cp.padd_select_mixed_scan(same, sx, sy))
+            ident = FQ.is_zero(pz)
+            agree = torch.equal(ident, ainf) and bool((
+                (FQ.mul(ax.transpose(0, 1), pz) == px).all(0)
+                & (FQ.mul(ay.transpose(0, 1), pz) == py).all(0)
+                | ident).all())
+            del ax, ay, ainf, px, py, pz, ident
+            ms = device_ms(lambda: cuda_affine.affine_scan(same, sx, sy), 2)
+            out[kid] = {"max_abs_err": 0 if agree else 1, "ms": ms,
+                        "plain_ms": None, "checked_against": "B3s, all lanes",
+                        **bound(nbytes, pipe_ms(product["B4"], products))}
+            log(f"[mxu/affine kernel] {kid} equal to B3s as points on every "
+                f"lane and step: {agree}; ms={ms:.4f} bound_ms="
+                f"{out[kid]['bound_ms']:.4f}")
+            if not agree:
+                raise AssertionError(f"{kid} differs from B3s")
+        out[kid]["b3s_ms"] = device_ms(
+            lambda: cp.padd_select_mixed_scan(same, sx, sy), 3)
+        out[kid].update(same_share=n_same / (L * M), steps=L, lanes=M)
+        log(f"[mxu/affine kernel] {kid}: A1 {out[kid]['ms']:.4f} ms, B3s "
+            f"{out[kid]['b3s_ms']:.4f} ms on the same inputs")
+        del same, sx, sy
+        torch.cuda.empty_cache()
+    out["A1"] = out[f"A1 {AFFINE_PLAN[0]}x{AFFINE_PLAN[1]}"]
+    t["a1"] = time.time() - t0
+
+    # (5) msm and msm_many with the affine scan against the projective one,
+    # and at 2^16 against the host oracle
+    t0 = time.time()
+    msm_out = {}
+    for log_n in (16, 20):
+        n = 1 << log_n
+        g = PointBatch(*(c[:, :n] for c in srs.g))
+        limbs = gen.integers(0, 1 << 16, size=(16, 4, n)).astype(np.int32)
+        limbs[15] &= 0x3FFF
+        sc = torch.as_tensor(limbs, device=dev)
+        res = {}
+        sums = {}
+        for affine in (False, True):
+            name = "affine" if affine else "projective"
+            kernels.reset_launch_counts()
+            one = tmsm.msm(sc[:, 0], g, affine=affine)
+            many = tmsm.msm_many(sc, g, affine=affine)
+            sync()
+            paths[f"msm+msm_many 2^{log_n} {name}"] = kernels.launch_counts()
+            sums[name] = (to_affine_host(PointBatch(*(c[:, None] for c in one))),
+                          to_affine_host(many))
+            ms = device_ms(lambda: tmsm.msm(sc[:, 0], g, affine=affine), 2,
+                           graph=False)
+            res[name] = {"ms": ms, "points_per_s": n / (ms * 1e-3)}
+        ok = sums["affine"] == sums["projective"]
+        if log_n == 16:
+            ref = oracles({"col0": FP.decode(sc[:, 0], from_mont=False)},
+                          srs.g_host[:n])["col0"]
+            ok = ok and sums["affine"][0][0] == ref
+        res["equal"] = ok
+        msm_out[f"2^{log_n}"] = res
+        log(f"[msm affine] 2^{log_n}: affine equals projective"
+            f"{' and the host oracle' if log_n == 16 else ''}: {ok}; "
+            f"projective {res['projective']['points_per_s']:,.0f} pts/s, "
+            f"affine {res['affine']['points_per_s']:,.0f} pts/s")
+        if not ok:
+            raise AssertionError(f"the affine MSM differs at 2^{log_n}")
+        aff = paths[f"msm+msm_many 2^{log_n} affine"]
+        if not aff["A1"] or aff["B3s"]:
+            raise AssertionError(f"affine MSM at 2^{log_n}: launches {aff}")
+        del sc, g
+    report["msm_affine"] = msm_out
+    t["msm_affine"] = time.time() - t0
+
+    # (6) the bench_msm twin at its defaults
+    t0 = time.time()
+    kernels.reset_launch_counts()
+    rep = bench_msm.run([12, 16], device=dev,
+                        log=lambda m: log(f"[bench_msm] {m}"))
+    paths["bench_msm 2^12, 2^16"] = kernels.launch_counts()
+    report["bench_msm"] = rep
+    t["bench_msm"] = time.time() - t0
+    if not rep["ok"]:
+        raise AssertionError("bench_msm: the affine sum differs")
+    missing = [k for k in ("A1", "A2", "B3s", "B5l")
+               if not paths["bench_msm 2^12, 2^16"][k]]
+    if missing:
+        raise AssertionError(f"bench_msm never launched {missing}")
+
+    # (7) config 2 proved with both switches: phase 4's bytes
+    t0 = time.time()
+    W, R = 24, 8
+    prog = config2_program(1 << 12, word_bits=W)
+    trace = eval_program(prog, W, R)
+    circ = TinyRamCircuit(W, R)
+    srs2 = setup(circ.k, dev)
+    pk = circ.keygen(srs2)
+    asg = circ.assignment(trace, dev)
+    kernels.reset_launch_counts()
+    t1 = time.time()
+    proof = create_proof(srs2, pk, asg, rng=SeededRng(SEED),
+                         ntt_method="mxu", msm_affine=True)
+    sync()
+    prove_s = time.time() - t1
+    counts = paths["config2 proof mxu+affine"] = kernels.launch_counts()
+    same = proof == proof2
+    ok = circ.verify(srs2, pk, prog, trace.answer, proof)
+    bad = circ.verify(srs2, pk, prog, trace.answer + 1, proof)
+    log(f"[mxu/affine proof] config 2 with ntt_method='mxu', msm_affine=True: "
+        f"{prove_s:.2f}s, bytes equal to phase 4's: {same}, verify={ok}, "
+        f"answer+1 accepted={bad}; launches {counts}")
+    report["proof_mxu_affine"] = {"prove_s": prove_s, "same_bytes": same,
+                                  "verify": ok, "launches": counts}
+    if not same or not ok or bad:
+        raise AssertionError("the mxu/affine proof differs or fails to verify")
+    if not (counts["M1"] and counts["A1"]) or counts["B2"]:
+        raise AssertionError(f"the mxu/affine proof's launches: {counts}")
+    del pk, asg, circ
+    t["proof"] = time.time() - t0
+    t["total"] = time.time() - t_phase
+    report["mxu_affine_s"] = t
+    log(f"[mxu/affine] phase seconds {t}")
+    return out, paths
+
+
+def kernel_rows(checks, probe, launches, launches3, paths, checks16) -> list:
     """The kernels line: each kernel at config 2's shapes, its launches in
-    one config-2 proof (P1, P2: in the probe path) and, beside them, in one
+    one config-2 proof (P1, P2: in the probe path; M1, A1, A2: at phase
+    16's shapes, in the path of NEW_KERNELS) and, beside them, in one
     config-3 proof and in each later path (`paths`: name -> counts)."""
     rows = []
     for kid, (name, source, replaces) in KERNELS.items():
         n3 = launches3.get(kid, 0)
-        if kid in checks:
+        if kid in NEW_KERNELS:
+            c = checks16[kid]
+            n = paths[NEW_KERNELS[kid]][kid]
+        elif kid in checks:
             c = checks[kid]
             n = launches[kid]
         else:
@@ -1471,6 +1787,8 @@ def kernel_rows(checks, probe, launches, launches3, paths) -> list:
                      "launches_config3": n3,
                      "launches_paths": {name: counts.get(kid, 0)
                                         for name, counts in paths.items()}})
+        if "digit_matmul_library_ms" in c:  # a different function: not
+            rows[-1]["digit_matmul_library_ms"] = c["digit_matmul_library_ms"]
     return rows
 
 
@@ -1483,7 +1801,9 @@ def main() -> int:
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     from tinyram_tpu_torch import kernels, probes
+    from tinyram_tpu_torch.curve import cuda_affine  # noqa: F401 (A1, A2)
     from tinyram_tpu_torch.ipa import setup
+    from tinyram_tpu_torch.poly import cuda_mxu  # noqa: F401 (M1's count)
 
     dev = torch.device("cuda", 0)
     smi = probes.nvidia_smi()
@@ -1550,6 +1870,12 @@ def main() -> int:
     t0 = time.time()
     shard_counts = shard_phase(dev, report, proof2)
     phase_s["shard"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    checks16, paths16 = mxu_affine_phase(dev, report, tables, proof2,
+                                         launches2)
+    report["kernels_mxu_affine"] = checks16
+    phase_s["mxu/affine"] = time.time() - t0
     log(f"[phases] seconds {phase_s}; setup(20) "
         f"{report['verify_msm']['setup20_s']:.2f}s")
     report["total_s"] = time.time() - t_start
@@ -1561,8 +1887,9 @@ def main() -> int:
     for name, res in report["bench"]["results"].items():
         paths[f"bench {name}, per call"] = res["launches"]
     paths.update(shard_counts)
+    paths.update(paths16)
     rows = kernel_rows(checks, probe, launches2,
-                       report["config3"]["launches"], paths)
+                       report["config3"]["launches"], paths, checks16)
     report["kernel_rows"] = rows
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:

@@ -1,6 +1,6 @@
 """The port's CUDA kernels B1-B6 (and the loop forms B3s, B4s, B5l, B6h),
-P1 and P2 against their plain versions, and the mock prover on the card
-against the CPU.
+M1, A1, A2, P1 and P2 against their plain versions, and the mock prover on
+the card against the CPU.
 
 Every test here needs an NVIDIA GPU: without one each skips (the decision is
 made in the `dev` fixture, not at import).  The machine with the card has no
@@ -14,6 +14,7 @@ is exact and both keep canonical limbs.  P2's f32fma rounds once on the card
 and twice in its plain version: rtol 1e-5 there, with equal infinities.
 """
 
+import importlib
 import os
 import random
 
@@ -22,6 +23,7 @@ import pytest
 import torch
 
 from tinyram_tpu_torch import kernels
+from tinyram_tpu_torch.curve import cuda_affine
 from tinyram_tpu_torch.curve import cuda_point as cp
 from tinyram_tpu_torch.curve import host, vesta
 from tinyram_tpu_torch.curve.msm import msm, msm_many
@@ -29,13 +31,16 @@ from tinyram_tpu_torch.curve.vesta import PointBatch, from_affine_host, to_affin
 from tinyram_tpu_torch.field import FP, FQ
 from tinyram_tpu_torch.field.cuda_mul import mont_mul, mont_mul_plain
 from tinyram_tpu_torch.ipa.srs import _hash_to_curve
-from tinyram_tpu_torch.poly import cuda_ntt
+from tinyram_tpu_torch.poly import cuda_mxu, cuda_ntt, mxu_ntt
 from tinyram_tpu_torch.poly.ntt import ntt
 from tinyram_tpu_torch.tinyram import Imm, Instruction
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
 pytestmark = pytest.mark.cuda
+
+# curve/__init__ re-exports the function `msm` over the module name
+tmsm = importlib.import_module("tinyram_tpu_torch.curve.msm")
 
 
 @pytest.fixture(scope="module")
@@ -281,6 +286,89 @@ def test_msm_on_card_matches_host(dev, n):
         stack = FP.encode(sc, to_mont=False, device=dev)[:, None].expand(16, 3, n)
         assert to_affine_host(msm_many(stack.contiguous(),
                                        from_affine_host(pts, dev))) == [want] * 3
+
+
+@pytest.mark.parametrize("log_r", range(1, 8))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_m1_dft_stage(dev, log_r, inverse):
+    """M1 against its plain version at every radix 2..128, on a (16, R, L)
+    array and on the transposed view of rows (what the four-step passes)."""
+    R = 1 << log_r
+    x = _limbs((R, 37), log_r)
+    want = mxu_ntt.dft_stage_plain(x, FP, log_r, inverse)
+    before = cuda_mxu.dft_stage_m1.launches
+    _gpu_equals_cpu(cuda_mxu.dft_stage_m1(x.to(dev), "Fp", log_r, inverse),
+                    want)
+    rows = x.transpose(1, 2).contiguous().to(dev).transpose(1, 2)
+    got = cuda_mxu.dft_stage_m1(rows, "Fp", log_r, inverse)
+    assert got.stride() == rows.stride()
+    _gpu_equals_cpu(got, want)
+    assert cuda_mxu.dft_stage_m1.launches == before + 2
+
+
+@pytest.mark.parametrize("log_n", [9, 12, 16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_ntt_mxu_equals_b2(dev, log_n, inverse):
+    x = _limbs((2, 1 << log_n), log_n).to(dev)
+    before = cuda_mxu.dft_stage_m1.launches
+    assert torch.equal(ntt(FP, x, inverse, method="mxu"), ntt(FP, x, inverse))
+    assert cuda_mxu.dft_stage_m1.launches > before
+
+
+@pytest.mark.parametrize("n", [1, 601, 1 << 17])
+def test_a2_batch_inverse(dev, n):
+    """A2 against its plain product tree, zeros left in (their stop-level
+    nodes give zero) and substituted lanes."""
+    d = _limbs((n,), n)
+    d[:, n // 3] = 0
+    if n > 8:
+        d[:, 7] = FQ.ones((1,))[:, 0]
+    before = cuda_affine.batch_inverse.launches
+    _gpu_equals_cpu(cuda_affine.batch_inverse(d.to(dev)), tmsm.batch_inv(d))
+    assert cuda_affine.batch_inverse.launches == before + 1
+
+
+@pytest.mark.parametrize("L,M", [(1, 1), (5, 600), (8, 1000)])
+def test_a1_affine_scan(dev, pool, L, M):
+    """A1 against its plain loop: restarts, repeated points (doubling) and
+    P then -P (cancel to the identity), over lanes of several blocks."""
+    rng = np.random.default_rng(L * M + 1)
+    idx = rng.integers(0, 16, size=(L, M))
+    same = rng.random((L, M)) < 0.6
+    if L > 2:
+        idx[1] = idx[0]  # doubling where same[1]
+        idx[2, : M // 2] = idx[1, : M // 2] ^ 8  # -P after 2P: no cancel;
+        idx[2, M // 2:] = idx[0, M // 2:] ^ 8  # -P after a restart: cancel
+        same[1, M // 2:] = False
+    aff = [from_affine_host([pool[int(i)] for i in row]) for row in idx]
+    sx = torch.stack([a.x for a in aff])
+    sy = torch.stack([a.y for a in aff])
+    same = torch.as_tensor(same)
+    before = cuda_affine.affine_scan.launches
+    got = cuda_affine.affine_scan(same.to(dev), sx.to(dev), sy.to(dev))
+    assert cuda_affine.affine_scan.launches == before + 1
+    want = tmsm.affine_scan_plain(same, sx, sy)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_msm_affine_on_card_matches_projective(dev):
+    """The Pippenger path with the affine scan (A1) against the projective
+    one (B3s), for msm and msm_many."""
+    n = (1 << 15) + 40
+    pool = [_hash_to_curve(b"torch-cuda-msm", i) for i in range(8)]
+    rng = np.random.default_rng(n)
+    pts = from_affine_host([None if j < 0 else pool[int(j)]
+                            for j in rng.integers(-1, 8, n)], dev)
+    sc = FP.encode([int(v) for v in rng.integers(0, 1 << 62, 2 * n)],
+                   to_mont=False, device=dev).reshape(16, 2, n)
+    before = cuda_affine.affine_scan.launches
+    for fn, s in ((msm, sc[:, 0]), (msm_many, sc)):
+        got = fn(s, pts, affine=True)
+        want = fn(s, pts)
+        assert to_affine_host(PointBatch(*(c.reshape(16, -1) for c in got))) \
+            == to_affine_host(PointBatch(*(c.reshape(16, -1) for c in want)))
+    assert cuda_affine.affine_scan.launches > before
 
 
 def test_w8_proof_on_card_equals_jax_bytes(dev):

@@ -27,8 +27,16 @@ log-depth trees and the carry fixup are Python loops of one-step launches
 (B4, B5), one per level.  The reference's environment knobs
 are keyword arguments with the same defaults (`window_bits`, `group_log2`,
 `lanes_log2`), and so is its `TINYRAM_DEBUG` check of the affine-input
-precondition (`check_affine`); its opt-in batched-affine scan is not
-ported.
+precondition (`check_affine`).
+
+`affine=True` (the reference's `TINYRAM_MSM_AFFINE=1`) replaces the bucket
+scan of step 2 with the batched-affine scan: the accumulator stays affine
+(x, y, inf) and each step's λ denominators of all lanes share one
+inversion (Montgomery's trick), one launch of kernel A1 per scan
+(`cuda_affine.py`); its plain version is `affine_scan_plain` below, over
+`batch_inv`.  The scan's rows are lifted back to projective (z = 0 for the
+identity, one otherwise) and steps 3-6 are unchanged.  It defaults to
+2^17 lanes per scan step, where the projective scan takes 2^15.
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ from functools import lru_cache
 
 import torch
 
-from ..field.field import FQ
+from ..field.field import FQ, FQ_PLAIN
 from ..field.params import N_LIMBS
 from . import vesta
+from .cuda_affine import STOP_WIDTH, affine_scan
 from .cuda_point import (padd, padd_select, padd_select_ladder,
                          padd_select_mixed_scan, padd_suffix_scan, pdouble,
                          pdouble_horner)
@@ -48,6 +57,7 @@ from .vesta import PointBatch
 SCALAR_BITS = 16 * N_LIMBS  # 256
 GROUP_LOG2 = 22  # peak elements per window group (reference default)
 LANES_LOG2 = 15  # total lanes per scan step (reference default)
+AFFINE_LANES_LOG2 = 17  # ... of the affine scan, whose steps cost more
 SMALL_MSM_LANES = 1 << 15  # bit-serial path up to this many lanes
 
 
@@ -123,6 +133,104 @@ def plan(n: int, n_windows: int, group_log2: int = GROUP_LOG2,
     return g, lanes, L, n_pad
 
 
+def _lanes_log2(lanes_log2: int | None, affine: bool) -> int:
+    """The reference's `_target_lanes`: 2^17 for the affine scan."""
+    if lanes_log2 is not None:
+        return lanes_log2
+    return AFFINE_LANES_LOG2 if affine else LANES_LOG2
+
+
+def _fermat_unrolled(a: torch.Tensor) -> torch.Tensor:
+    """a^(p-2) over Fq by square and multiply over the bits of p - 2, from
+    the top (the reference's ladder, without its unrolling): the inverse,
+    and inv(0) = 0.  Plain products (`FQ_PLAIN`)."""
+    return FQ_PLAIN.pow_const(a, FQ.modulus - 2)
+
+
+def batch_inv(d: torch.Tensor, stop_width: int = STOP_WIDTH) -> torch.Tensor:
+    """Inverses over the last axis by a product tree (plain version of
+    kernel A2).
+
+    Montgomery's simultaneous inversion as the reference runs it: pair
+    neighbours up (an odd level is padded with one) until at most
+    `stop_width` products are left, invert those by `_fermat_unrolled`,
+    then go down (inv_left = inv_parent·right, inv_right =
+    inv_parent·left).  A zero input makes its whole node at the stop level
+    zero: the callers substitute one for zeros first.
+    """
+    levels = []  # (left, right, width before padding)
+    cur = d
+    while cur.shape[-1] > stop_width:
+        n = cur.shape[-1]
+        if n % 2:
+            cur = torch.cat(
+                [cur, FQ_PLAIN.ones(cur.shape[1:-1] + (1,), cur.device)],
+                dim=-1)
+        left, right = cur[..., 0::2], cur[..., 1::2]
+        levels.append((left, right, n))
+        cur = FQ_PLAIN.mul(left, right)
+    inv = _fermat_unrolled(cur)
+    for left, right, n in reversed(levels):
+        inv_left = FQ_PLAIN.mul(inv, right)
+        inv_right = FQ_PLAIN.mul(inv, left)
+        w = left.shape[-1]
+        inv = torch.stack([inv_left, inv_right], dim=-1).reshape(
+            left.shape[:-1] + (2 * w,))[..., :n]
+    return inv
+
+
+def affine_step(acc, s, cx, cy):
+    """One step of the batched-affine bucket scan (plain products), the
+    reference's scan body.  acc = (ax, ay, inf) over M lanes, s the (M,)
+    `same` mask, (cx, cy) the step's affine points; returns the new
+    accumulator.  Cases: restart (not s) or identity accumulator -> take q;
+    x equal and y equal -> doubling (λ = 3x²/2y); x equal, y differs ->
+    cancel to the identity, canonical (0, 1); else the chord
+    (λ = Δy/Δx).  The denominators of lanes that add nothing, and zero
+    ones, are replaced by one before the shared inversion."""
+    F = FQ_PLAIN
+    ax, ay, inf = acc
+    M = s.shape[0]
+    one_m = F.ones((M,), cx.device)
+    x_eq = F.eq(ax, cx)
+    y_eq = F.eq(ay, cy)
+    dbl = x_eq & y_eq
+    cancel = x_eq & ~y_eq
+    ax2 = F.mul(ax, ax)
+    numer = F.select(dbl, F.add(F.double(ax2), ax2), F.sub(cy, ay))
+    denom = F.select(dbl, F.double(ay), F.sub(cx, ax))
+    active = s & ~inf & ~cancel
+    safe = active & ~F.is_zero(denom)
+    denom = F.select(safe, denom, one_m)
+    lam = F.mul(numer, batch_inv(denom))
+    x3 = F.sub(F.sub(F.mul(lam, lam), ax), cx)
+    y3 = F.sub(F.mul(lam, F.sub(ax, x3)), ay)
+    takes_q = ~s | inf
+    nx = F.select(takes_q, cx, x3)
+    ny = F.select(takes_q, cy, y3)
+    ninf = s & ~inf & cancel
+    nx = F.select(ninf, F.zeros((M,), cx.device), nx)
+    ny = F.select(ninf, one_m, ny)
+    return nx, ny, ninf
+
+
+def affine_scan_plain(same, sx, sy):
+    """A1's plain version: from (0, 0, inf) the loop of `affine_step` over
+    same (L, M) and sx, sy (L, 16, M); returns every step's accumulator as
+    (L, 16, M) x and y and (L, M) inf."""
+    L, _, M = sx.shape
+    dev = sx.device
+    xs = torch.empty((L, N_LIMBS, M), dtype=torch.int32, device=dev)
+    ys = torch.empty_like(xs)
+    infs = torch.empty((L, M), dtype=torch.bool, device=dev)
+    acc = (FQ.zeros((M,), dev), FQ.zeros((M,), dev),
+           torch.ones((M,), dtype=torch.bool, device=dev))
+    for s in range(L):
+        acc = affine_step(acc, same[s], sx[s], sy[s])
+        xs[s], ys[s], infs[s] = acc
+    return xs, ys, infs
+
+
 def _shift_lanes(p: PointBatch, d: int, fill: PointBatch) -> PointBatch:
     """Lane k takes lane k-d (the first d lanes take `fill`)."""
     return PointBatch(*(
@@ -137,11 +245,14 @@ def _group_bucket_sums(
     lanes_per_window: int,
     L: int,
     n_buckets: int,
+    affine: bool = False,
 ) -> PointBatch:
     """Bucket sums for G digit vectors at once -> batch (G, n_buckets + 1).
 
-    Slot n_buckets is the spill bucket (identity inputs and padding); it
-    is left as the identity.
+    Slot n_buckets is the spill bucket (identity inputs and padding): the
+    projective scan leaves the identity there, the affine one what its
+    padding lanes sum to, and nothing reads it.  `affine` runs the
+    batched-affine scan (A1) in place of the projective one (B3s).
     """
     dev = digits_g.device
     spill = n_buckets
@@ -186,7 +297,16 @@ def _group_bucket_sums(
          d_chunk[:, 1:] == d_chunk[:, :-1]], dim=-1,
     ).T.contiguous()  # (L, M)
 
-    ys = padd_select_mixed_scan(same, sx, sy)  # (L, 16, M) each
+    if affine:
+        ax, ay, ainf = affine_scan(same, sx, sy)
+        # lift back to projective: z = 0 for identity lanes, one otherwise
+        az = torch.where(ainf[:, None, :], torch.zeros((), dtype=torch.int32,
+                                                       device=dev),
+                         FQ.ones((M,), dev)[None])
+        ys = PointBatch(ax, ay, az)
+        del ax, ay, ainf
+    else:
+        ys = padd_select_mixed_scan(same, sx, sy)  # (L, 16, M) each
     del sx, sy
 
     # ---- cross-chunk carry fixup (log-width over the chunk-lane axis)
@@ -300,7 +420,8 @@ def _combine_windows(window_sums: PointBatch, c: int) -> PointBatch:
 
 
 def _bucket_sums_all(digits, signs, points: PointBatch, c: int,
-                     group_log2: int, lanes_log2: int) -> PointBatch:
+                     group_log2: int, lanes_log2: int,
+                     affine: bool = False) -> PointBatch:
     """(W_total, N) bucket ids + signs -> batch (W_total, 2^(c-1) + 2)."""
     w_total, n = digits.shape
     n_buckets = (1 << (c - 1)) + 1  # ids 0..2^(c-1); spill index = n_buckets
@@ -314,7 +435,7 @@ def _bucket_sums_all(digits, signs, points: PointBatch, c: int,
                                               device=signs.device)])
     parts = [
         _group_bucket_sums(digits[g * G:(g + 1) * G], signs[g * G:(g + 1) * G],
-                           points, lanes, L, n_buckets)
+                           points, lanes, L, n_buckets, affine)
         for g in range(n_groups)
     ]
     return PointBatch(*(
@@ -342,15 +463,18 @@ def _msm_small(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
         padd_select_ladder(_bits_msb_first(scalars_plain), pts))
 
 
-def _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2):
-    """(16, B, N) scalars -> batch (B,) via the bucket pipeline."""
+def _msm_pippenger(scalars_plain, points, c, group_log2=GROUP_LOG2,
+                   lanes_log2=None, affine: bool = False):
+    """(16, B, N) scalars -> batch (B,) via the bucket pipeline; `affine`
+    takes the batched-affine bucket scan."""
+    lanes_log2 = _lanes_log2(lanes_log2, affine)
     _, B, n = scalars_plain.shape
     n_windows = -(-SCALAR_BITS // c)
     digits, signs = signed_digits(scalars_plain, c)  # (W, B, N)
     digits_flat = digits.transpose(0, 1).reshape(B * n_windows, n)
     signs_flat = signs.transpose(0, 1).reshape(B * n_windows, n)
     buckets = _bucket_sums_all(digits_flat, signs_flat, points, c,
-                               group_log2, lanes_log2)
+                               group_log2, lanes_log2, affine)
     wsums = _weighted_bucket_reduce_signed(buckets, c)  # batch (B·W,)
     per_col = PointBatch(*(
         coord.reshape(N_LIMBS, B, n_windows).transpose(1, 2) for coord in wsums
@@ -374,13 +498,16 @@ def check_affine_precondition(points: PointBatch) -> None:
 
 def msm(scalars_plain: torch.Tensor, points: PointBatch,
         window_bits: int | None = None, group_log2: int = GROUP_LOG2,
-        lanes_log2: int = LANES_LOG2, check_affine: bool = False) -> PointBatch:
+        lanes_log2: int | None = None, check_affine: bool = False,
+        affine: bool = False) -> PointBatch:
     """Σ s_i·P_i for (16, N) plain-form scalars; returns batch ().
 
     Points must be affine-or-identity (z per lane 0 or Montgomery one):
     the Pippenger path (N > 2^15) lifts them as (x, y, 1).  With
     `check_affine` that is checked first, on either path
-    (`check_affine_precondition`).
+    (`check_affine_precondition`).  `affine` takes the batched-affine
+    bucket scan on the Pippenger path (`lanes_log2` then defaults to 17,
+    else 15).
     """
     if check_affine:
         check_affine_precondition(points)
@@ -389,21 +516,22 @@ def msm(scalars_plain: torch.Tensor, points: PointBatch,
         return _msm_small(scalars_plain, points)
     c = window_bits or choose_window_bits(n)
     out = _msm_pippenger(scalars_plain[:, None], points, c, group_log2,
-                         lanes_log2)
+                         lanes_log2, affine)
     return PointBatch(*(coord[:, 0] for coord in out))
 
 
 def msm_many(scalars_plain: torch.Tensor, points: PointBatch,
              window_bits: int | None = None, group_log2: int = GROUP_LOG2,
-             lanes_log2: int = LANES_LOG2,
-             check_affine: bool = False) -> PointBatch:
+             lanes_log2: int | None = None, check_affine: bool = False,
+             affine: bool = False) -> PointBatch:
     """MSM of B scalar vectors (16, B, N) against one point set; returns
     batch (B,).  Points must be affine-or-identity, as for `msm`, and
-    `check_affine` checks it."""
+    `check_affine` checks it; `affine` as for `msm`."""
     if check_affine:
         check_affine_precondition(points)
     _, B, n = scalars_plain.shape
     if B * n <= SMALL_MSM_LANES:
         return _msm_small(scalars_plain, points)
     c = window_bits or choose_window_bits(n)
-    return _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2)
+    return _msm_pippenger(scalars_plain, points, c, group_log2, lanes_log2,
+                          affine)

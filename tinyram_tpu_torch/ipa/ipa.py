@@ -33,6 +33,7 @@ from ..curve.host import AffinePoint
 from ..field.field import FP
 from ..poly.ntt import powers, tree_sum
 from ..transcript.transcript import TranscriptReader, TranscriptWriter
+from ..utils.algorithms import msm_affine
 from .srs import SRS
 
 P = FP.modulus
@@ -40,8 +41,9 @@ COMMIT_CHUNK = 64  # columns per batched MSM pass (reference default)
 
 
 def _msm_dispatch(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
-    """`msm_many` of (16, B, N) scalars, or, when a mesh context is active
-    and its size divides N, the point-sharded `msm_many_sharded` of this
+    """`msm_many` of (16, B, N) scalars with the bucket scan of the active
+    context (`utils/algorithms.py`), or, when a mesh context is active and
+    its size divides N, the point-sharded `msm_many_sharded` of this
     rank's block."""
     from ..shard.context import current_mesh
 
@@ -51,7 +53,7 @@ def _msm_dispatch(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch
 
         return msm_many_sharded(mesh, mesh.block(scalars_plain),
                                 PointBatch(*(mesh.block(c) for c in points)))
-    return msm_many(scalars_plain, points)
+    return msm_many(scalars_plain, points, affine=msm_affine())
 
 
 def commit(srs: SRS, coeffs: torch.Tensor, blind: int = 0,

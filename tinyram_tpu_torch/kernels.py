@@ -127,6 +127,16 @@ _SIGNATURES = {
     # B6h: Horner, per window c doublings then + S_w, from the identity
     #     (sx, sy, sz, ox, oy, oz, c, nw, group, n, stream), S (16, nw, n)
     "tr_pdouble_horner": [_VP] * 6 + [_I64, _I64, _INT, _I64, _VP],
+    # M1: radix-2^log_r DFT along axis 1 of (16, R, L) limbs, in and out at
+    #     the element strides (sl, sr, sc)
+    #     (x, out, digits, fold consts, log_r, L, sl, sr, sc, field, stream)
+    "tr_mxu_dft": [_VP] * 4 + [_INT, _I64, _I64, _I64, _I64, _INT, _VP],
+    # A1: L steps of the affine bucket accumulation over M lanes
+    #     (same, qx, qy, ox, oy, oinf, L, M, stream)
+    "tr_affine_scan": [_VP] * 6 + [_I64, _I64, _VP],
+    # A2: inverses over groups of 2^group_log2 lanes (d, out, n, group_log2,
+    #     stream)
+    "tr_batch_inv": [_VP, _VP, _I64, _INT, _VP],
     # P1/P2: REPS chained op(x, b) per element
     #     (op, reps, a, b, out, n, stream)
     "tr_vpu_probe": [_INT, _INT, _VP, _VP, _VP, _I64, _VP],

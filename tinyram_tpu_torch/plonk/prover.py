@@ -18,8 +18,14 @@ every block is evaluated eagerly, one field operation per call (kernel B1
 for every multiply on a CUDA device).  Its memory knobs are keyword
 arguments with the reference's defaults: `ext_chunk` (columns per coset
 NTT call), `gate_slab` (gate polynomials per quotient block) and
-`commit_chunk` (columns per batched MSM).  The seven phases of the
-reference are timed into `utils.profiling.counters` as "prover.<phase>".
+`commit_chunk` (columns per batched MSM), and so are its algorithm
+switches: `ntt_method="mxu"` (the reference's `TINYRAM_NTT=mxu`: the domain
+transforms run the digit-matmul NTT, kernel M1) and `msm_affine=True`
+(`TINYRAM_MSM_AFFINE=1`: the commitments' and opening rounds' Pippenger
+MSMs run the batched-affine bucket scan, kernel A1), through the context
+of `utils/algorithms.py`; the mesh branches keep their algorithms.  The
+seven phases of the reference are timed into `utils.profiling.counters`
+as "prover.<phase>".
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from ..ipa import SRS
 from ..ipa.ipa import COMMIT_CHUNK, commit, commit_many, open_poly
 from ..poly.ntt import _mont_table, eval_poly, tree_sum
 from ..transcript import TranscriptWriter
+from ..utils.algorithms import algorithms
 from ..utils.profiling import counters
 from .circuit import Assignment
 from .expr import batched_evaluate, queried_vars
@@ -380,7 +387,19 @@ def create_proof(
     tw: TranscriptWriter | None = None, rng=secrets,
     ext_chunk: int = EXT_CHUNK, gate_slab: int = GATE_SLAB,
     commit_chunk: int = COMMIT_CHUNK, phase_hook=None, mesh=None,
+    ntt_method: str = "b2", msm_affine: bool = False,
 ) -> bytes:
+    """The proof of `asg` under `pk`.  `ntt_method` ("b2" or "mxu") and
+    `msm_affine` pick the domain transforms' NTT and the commitments' MSM
+    bucket scan (`utils/algorithms.py`); every choice gives the same
+    bytes."""
+    with algorithms(ntt_method, msm_affine):
+        return _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab,
+                             commit_chunk, phase_hook, mesh)
+
+
+def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
+                  phase_hook, mesh) -> bytes:
     if mesh is not None:
         # sharded mode: every rank runs this prover on the same inputs
         # under the mesh context (domain transforms and MSMs shard), with
@@ -389,10 +408,9 @@ def create_proof(
         from ..shard.mesh import MeshRng
 
         with mesh_context(mesh):
-            return create_proof(srs, pk, asg, tw, rng=MeshRng(mesh, rng),
-                                ext_chunk=ext_chunk, gate_slab=gate_slab,
-                                commit_chunk=commit_chunk,
-                                phase_hook=phase_hook)
+            return _create_proof(srs, pk, asg, tw, MeshRng(mesh, rng),
+                                 ext_chunk, gate_slab, commit_chunk,
+                                 phase_hook, None)
     cs = pk.vk.cs
     dom = pk.domain
     dev = dom.device

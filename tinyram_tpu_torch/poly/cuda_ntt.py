@@ -146,13 +146,16 @@ kernels.register("B2", colntt)
 
 
 def four_step(x, field: Field, inverse: bool, scale=None,
-              log_s_max: int = LOG_S_MAX):
+              log_s_max: int = LOG_S_MAX, base=None):
     """NTT of each row of x (16, rows, S) for any power-of-two S, from
-    `colntt` launches of at most 2^log_s_max points."""
+    sub-transforms of at most 2^log_s_max points: `base(x, field, inverse,
+    mult, scale)`, which has `colntt`'s contract (`colntt` when None; the
+    digit-matmul stage of `mxu_ntt.py` is the other)."""
+    base = base or colntt
     rows, S = x.shape[1], x.shape[2]
     log_s = S.bit_length() - 1
     if log_s <= log_s_max:
-        return colntt(x, field, inverse, None, scale)
+        return base(x, field, inverse, None, scale)
     log_a = min(log_s_max, (log_s + 1) // 2)
     a, b = 1 << log_a, S >> log_a
     # index i = i1·b + i2: transform over i1 (rows (r, i2)), times ω_S^(k1·i2)
@@ -166,11 +169,11 @@ def four_step(x, field: Field, inverse: bool, scale=None,
         ),
         x.device,
     )
-    y = colntt(xt.contiguous(), field, inverse, cross, None)  # [r, i2, k1]
+    y = base(xt.contiguous(), field, inverse, cross, None)  # [r, i2, k1]
     yt = y.reshape(N_LIMBS, rows, b, a).transpose(2, 3).reshape(
         N_LIMBS, rows * a, b
     )
-    z = four_step(yt.contiguous(), field, inverse, scale, log_s_max)
+    z = four_step(yt.contiguous(), field, inverse, scale, log_s_max, base)
     # z[r, k1, k2] holds output index k = k1 + a·k2
     return z.reshape(N_LIMBS, rows, a, b).transpose(2, 3).reshape(
         N_LIMBS, rows, S

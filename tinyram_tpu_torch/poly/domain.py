@@ -22,6 +22,7 @@ import torch
 
 from ..field.field import FP, FQ, Field
 from ..field.params import N_LIMBS
+from ..utils.algorithms import ntt_method
 from ..utils.device import CUDA, resolve
 from .ntt import _mont_table, coeff_scale, ntt, omega_for, powers
 
@@ -48,9 +49,10 @@ class Domain:
     # ------------------------------------------------------------ transforms
 
     def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """Single-device NTT, or, under a mesh context whose size divides
-        the four-step split, the all-to-all sharded NTT of this rank's
-        block, gathered."""
+        """Single-device NTT by the algorithm of the active context
+        (`utils/algorithms.py`), or, under a mesh context whose size
+        divides the four-step split, the all-to-all sharded NTT of this
+        rank's block, gathered."""
         from ..shard.context import current_mesh
 
         mesh = current_mesh()
@@ -63,7 +65,7 @@ class Domain:
             if self.field.params.name == "Fp" and R % D == 0 and C % D == 0:
                 out = ntt_sharded(mesh, mesh.block(a), inverse, self.field)
                 return mesh.all_gather(out, -1)
-        return ntt(self.field, a, inverse=inverse)
+        return ntt(self.field, a, inverse=inverse, method=ntt_method())
 
     def lagrange_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on H (natural ω^i order) -> coefficients."""

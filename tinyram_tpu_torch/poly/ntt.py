@@ -3,9 +3,11 @@
 Port of `tinyram_tpu/poly/ntt.py`.  Arrays are limb-major `(16, ..., n)`
 int32; the transform axis is the last one.  On a CUDA tensor, transforms of
 n >= 512 points run the shared-memory kernel B2 through the four-step
-composition of `cuda_ntt.py`; smaller ones, and every CPU transform, run the
-iterative Cooley-Tukey stages below (bit-reversal gather, one batched field
-multiply plus an add and a subtract per stage).
+composition of `cuda_ntt.py`, or, with `method="mxu"` (the reference's
+`TINYRAM_NTT=mxu`), the int8 digit-matmul stages of `mxu_ntt.py` (kernel
+M1) through the same composition; smaller ones, and every CPU transform,
+run the iterative Cooley-Tukey stages below (bit-reversal gather, one
+batched field multiply plus an add and a subtract per stage).
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 
 from ..field.field import FP, FQ, Field
 from ..field.params import N_LIMBS, ints_to_limb_array
+from ..utils.algorithms import NTT_METHODS
 
-NTT_KERNEL_MIN = 512  # smallest CUDA transform routed to kernel B2
+NTT_KERNEL_MIN = 512  # smallest CUDA transform routed to kernel B2 or M1
 
 
 def _bitrev_indices(log_n: int) -> np.ndarray:
@@ -96,18 +99,30 @@ def radix2_stages(field: Field, a: torch.Tensor, inverse: bool) -> torch.Tensor:
     return out
 
 
-def ntt(field: Field, a: torch.Tensor, inverse: bool = False) -> torch.Tensor:
+def ntt(field: Field, a: torch.Tensor, inverse: bool = False,
+        method: str = "b2") -> torch.Tensor:
     """In-order NTT of `a` (16, ..., n) along the last axis.
 
     Forward: coeffs -> evals at (1, ω, ω², …) in natural order.
     Inverse: evals -> coeffs (including the 1/n scale).
+
+    `method` picks the algorithm of CUDA transforms of >= NTT_KERNEL_MIN
+    points: "b2" the butterflies of kernel B2, "mxu" the int8
+    digit-matmul stages of `mxu_ntt.ntt_mxu` (kernel M1), where the
+    reference reads `TINYRAM_NTT=mxu`.  Both give the same outputs.
     """
+    if method not in NTT_METHODS:
+        raise ValueError(f"ntt: method {method!r} not in {NTT_METHODS}")
     n = a.shape[-1]
     log_n = n.bit_length() - 1
     assert 1 << log_n == n, "NTT size must be a power of two"
     if n == 1:
         return a
     if n >= NTT_KERNEL_MIN and a.device.type == "cuda":
+        if method == "mxu":
+            from .mxu_ntt import ntt_mxu
+
+            return ntt_mxu(field, a, inverse=inverse)
         from .cuda_ntt import ntt_cuda
 
         return ntt_cuda(field, a, inverse=inverse)
