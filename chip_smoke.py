@@ -88,9 +88,13 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     rank a process on the one card: `dryrun_multichip(2)` and `(4)`, a rank
     made to raise, the sharded NTT of a (16, 2^20) column at D = 2 and 4,
     the sharded MSM over 2^18 generators at D = 2, config 2 proved by
-    `create_proof(mesh=)` at D = 2 (the bytes of phase 4's proof), and the
-    scaling report at D = 1, 2, 4.  Each path's counts are reset in every
-    rank before it, summed over the ranks, and must show its kernels.
+    `create_proof(mesh=)` at D = 2 and at D = 4 (the bytes of phase 4's
+    proof on every rank; the quotient phase row-sharded: no all-gather
+    while the constraints fold, every transform split), and the scaling
+    report at D = 1, 2, 4.  Each path's counts are reset in every rank
+    before it, summed over the ranks, and must show its kernels; each
+    proof's rank prints its seven phase seconds, its peak and the
+    collectives of its quotient phases.
 16. The digit-matmul NTT (M1) and the batched-affine MSM (A1, A2), with
     the counts reset before each path (`mxu_affine_phase`): M1 against its
     plain version on a seeded sample of 64 columns at every stage shape of
@@ -1265,6 +1269,53 @@ def _summed(stats) -> dict:
     return dict(out)
 
 
+QUOTIENT_PHASES = ("constraint ext eval", "quotient+commit")
+
+
+def _check_sharded_proof(d: int, proofs: list, proof2: bytes, counts: dict,
+                         out: dict) -> list:
+    """(d) of `shard_phase` for the D = d ranks' `paths.config_proof`
+    results: the checks, the launches summed over the ranks into
+    `counts`, and per rank (returned and printed) its prove and phase
+    seconds, peak GiB and the collectives of the quotient phases."""
+    name = f"shard config 2 proof D={d}"
+    stats = [p["stats"] for p in proofs]
+    counts[name] = _summed(stats)
+    out["seconds"][name] = max(s["seconds"] for s in stats)
+    out["peak_gib"][name] = _rank_peaks(stats)
+    same_ranks = len({p["proof"] for p in proofs}) == 1
+    same_single = proofs[0]["proof"] == proof2
+    log(f"[shard] config 2 at D={d}: {len(proofs[0]['proof'])} bytes, equal "
+        f"on every rank {same_ranks}, equal to phase 4's proof "
+        f"{same_single}, verify {proofs[0]['verified']}, answer+1 rejected "
+        f"{proofs[-1]['rejected']}; launches summed over the ranks "
+        f"{counts[name]}")
+    per_rank = []
+    for r, st in enumerate(stats):
+        coll = {ph: st["phase_collectives"].get(ph, {})
+                for ph in QUOTIENT_PHASES}
+        per_rank.append({"prove_s": st["seconds"], "phases": st["phases"],
+                         "peak_gib": round(st["peak_bytes"] / 2**30, 3),
+                         "collectives": coll})
+        log(f"[shard] config 2 D={d} rank {r}: prove {st['seconds']:.3f}s, "
+            f"peak {st['peak_bytes'] / 2**30:.3f} GiB, phases "
+            f"{ {k: round(v, 3) for k, v in st['phases'].items()} }, "
+            f"quotient collectives {coll}")
+    if not (same_ranks and same_single and proofs[0]["verified"]
+            and proofs[-1]["rejected"]):
+        raise AssertionError(f"{name}: failed its checks")
+    missing = [k for k in SHARD_PROOF_KERNELS if counts[name][k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: never launched {missing}")
+    for r, pr in enumerate(per_rank):
+        fold, after = (pr["collectives"][ph] for ph in QUOTIENT_PHASES)
+        if "all_gather" in fold or "unsplit" in fold or "unsplit" in after \
+                or "all_gather" not in after:
+            raise AssertionError(f"{name} rank {r}: the quotient phase is "
+                                 f"not row-sharded: {pr['collectives']}")
+    return per_rank
+
+
 def shard_phase(dev, report, proof2: bytes) -> dict:
     """15. The sharded paths (`tinyram_tpu_torch/shard/`), every rank a
     process on the one card (gloo, collectives staged through host
@@ -1274,13 +1325,16 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
     bit for bit to the single-device `ntt`; (c) `msm_sharded` over
     `setup(18)`'s 2^18 generators at D = 2 (2^17 per rank: the Pippenger
     path), equal in affine form to the single-device `msm`; (d) BASELINE
-    config 2 proved by `create_proof(mesh=)` at D = 2 under the seeded
-    stream of phase 4: equal bytes on both ranks and equal to phase 4's
-    proof, accepted by `verify_proof`, rejected for answer + 1; (e)
-    `scaling_report` at D = 1, 2, 4 (NTT 2^20, MSM 2^18).  Each path's
-    launch counts are reset in every rank before it and summed over the
-    ranks: B2 and B1 must launch in (b), every MSM kernel in (c), and B1,
-    B3s, B4, B4s, B5, B5l and B6h in (d).  Returns the per-path counts."""
+    config 2 proved by `create_proof(mesh=)` at D = 2 and at D = 4 under
+    the seeded stream of phase 4: equal bytes on every rank and equal to
+    phase 4's proof, accepted by `verify_proof`, rejected for answer + 1;
+    the quotient phase runs on row blocks, so on every rank "constraint
+    ext eval" sends no all-gather and no transform goes unsplit, and
+    "quotient+commit" gathers; (e) `scaling_report` at D = 1, 2, 4 (NTT
+    2^20, MSM 2^18).  Each path's launch counts are reset in every rank
+    before it and summed over the ranks: B2 and B1 must launch in (b),
+    every MSM kernel in (c), and B1, B3s, B4, B4s, B5, B5l and B6h in (d).
+    Returns the per-path counts."""
     import numpy as np
     import torch
 
@@ -1346,8 +1400,9 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
             paths.sequence, 2, ntt_calls + [
                 (paths.msm_path, (sc, None, SHARD_MSM_LOG)),
                 (paths.config_proof, (2, SEED))], log=log)),
-        4: timed("D=4 ranks: (b)", lambda: run_on_mesh(
-            paths.sequence, 4, ntt_calls, log=log)),
+        4: timed("D=4 ranks: (b) (d)", lambda: run_on_mesh(
+            paths.sequence, 4, ntt_calls + [
+                (paths.config_proof, (2, SEED))], log=log)),
     }
     for d, ranks in runs.items():
         for i, inv in enumerate((False, True)):
@@ -1373,25 +1428,10 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
     if missing:
         raise AssertionError(f"{name}: never launched {missing}")
 
-    name = "shard config 2 proof D=2"
-    proofs = [r[3] for r in ranks]
-    stats = [p["stats"] for p in proofs]
-    counts[name] = _summed(stats)
-    out["seconds"][name] = max(s["seconds"] for s in stats)
-    out["peak_gib"][name] = _rank_peaks(stats)
-    same_ranks = len({p["proof"] for p in proofs}) == 1
-    same_single = proofs[0]["proof"] == proof2
-    log(f"[shard] config 2 at D=2: {len(proofs[0]['proof'])} bytes, equal on "
-        f"both ranks {same_ranks}, equal to phase 4's proof {same_single}, "
-        f"verify {proofs[0]['verified']}, answer+1 rejected "
-        f"{proofs[-1]['rejected']}; prove s {[round(s['seconds'], 3) for s in stats]}"
-        f"; rank 0 phases {stats[0]['phases']}")
-    if not (same_ranks and same_single and proofs[0]["verified"]
-            and proofs[-1]["rejected"]):
-        raise AssertionError(f"{name}: failed its checks")
-    missing = [k for k in SHARD_PROOF_KERNELS if counts[name][k] == 0]
-    if missing:
-        raise AssertionError(f"{name}: never launched {missing}")
+    out["config 2"] = {}
+    for d, i in ((2, 3), (4, 2)):
+        out["config 2"][d] = _check_sharded_proof(
+            d, [r[i] for r in runs[d]], proof2, counts, out)
 
     # (e) the scaling report on one card
     rep = timed("scaling report", lambda: scaling_report(

@@ -4,6 +4,7 @@ scripts/prove_config3.py (its flags, its W = 24, k = 17).
 
 Usage: python3 scripts/torch_prove_config3.py [--mock] [--prove]
            [--warm N] [--profile] [steps_log2=16]
+       python3 scripts/torch_prove_config3.py --mesh D [--seed S]
 
 Emulates 2^steps_log2 steps with the Python and the native emulator
 (equal traces required) and builds the witness; --mock runs the port's
@@ -14,6 +15,18 @@ built, kernels loaded).  --profile runs the whole under cProfile and
 writes the top functions by cumulative and by own time to
 chiprun_out/config3_profile.txt.
 Writes chiprun_out/config3_report.json and prints it as the last line.
+
+--mesh D proves config 3 (2^16 steps) twice under the seeded stream
+`shard.paths.SeededRng(S)` (S = 0 by default): on one device, which
+caches the SRS and the key in build/cache/, then by `create_proof(mesh=)`
+on D ranks (`run_on_mesh(shard.paths.config_proof, D, 3, S)`, every rank
+on the card(s) as `rank_devices` maps them, a deadline of 20 minutes),
+each rank printing its phases as it ends them.  The bytes must be equal on
+every rank and to the single-device proof, rank 0 must verify it and the
+last rank reject answer + 1.  Writes chiprun_out/config3_mesh_report.json
+(per rank: prove and phase seconds, peak, launches, the collectives of
+each phase) and prints it as the last line; a run that fails or passes
+its deadline is recorded there with the ranks' errors, and exits 1.
 """
 
 import cProfile
@@ -22,9 +35,61 @@ import json
 import os
 import pstats
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
+
+
+MESH_DEADLINE_S = 1200.0
+
+
+def mesh_main(n_devices: int, seed: int) -> int:
+    import gc
+
+    import torch
+
+    from tinyram_tpu_torch.probes import nvidia_smi
+    from tinyram_tpu_torch.shard import RankError, paths, run_on_mesh
+    from tinyram_tpu_torch.tinyram.prove_config import prove_config
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    single = prove_config(3, mock=False, prove=True,
+                          rng=paths.SeededRng(seed),
+                          log=lambda m: print(m, flush=True))
+    proof = single.pop("objects")["proof"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"nvidia_smi": smi, "seed": seed, "devices": n_devices,
+              "single": {"prove_s": single["seconds"]["prove"],
+                         "peak_gib": single["peak_bytes"]["prove"] / 2**30,
+                         "phases": single["phases"],
+                         "launches": single["launches"]}}
+    t0 = time.time()
+    try:
+        ranks = run_on_mesh(paths.config_proof, n_devices, 3, seed,
+                            paths.CACHE_DIR, True, timeout_s=MESH_DEADLINE_S)
+    except RankError as e:
+        report["error"] = str(e)
+        ranks = None
+    report["mesh_s"] = time.time() - t0
+    if ranks is not None:
+        report["ranks"] = [{k: r["stats"][k] for k in (
+            "seconds", "phases", "phase_collectives", "collectives",
+            "launches")} | {"peak_gib": r["stats"]["peak_bytes"] / 2**30}
+            for r in ranks]
+        report["equal_on_every_rank"] = len({r["proof"] for r in ranks}) == 1
+        report["equal_to_single"] = ranks[0]["proof"] == proof
+        report["verified"] = ranks[0]["verified"]
+        report["rejected"] = ranks[-1]["rejected"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "config3_mesh_report.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    print(json.dumps(report), flush=True)
+    ok = ranks is not None and all(report[k] for k in (
+        "equal_on_every_rank", "equal_to_single", "verified", "rejected"))
+    return 0 if ok else 1
 
 
 def main() -> int:
@@ -35,6 +100,9 @@ def main() -> int:
     from tinyram_tpu_torch.tinyram.prove_config import prove_config
 
     args = sys.argv[1:]
+    if "--mesh" in args:
+        seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
+        return mesh_main(int(args[args.index("--mesh") + 1]), seed)
     warm = int(args[args.index("--warm") + 1]) if "--warm" in args else 0
     steps_log2 = next((int(a) for i, a in enumerate(args)
                        if a.isdigit() and (i == 0 or args[i - 1] != "--warm")), 16)

@@ -11,12 +11,23 @@ each, a deadline of its own) once per D and runs every sharded path there
   * the JAX package's `curve/host.py` `msm` in affine form, for
     `msm_sharded` and `msm_many_sharded` over 8·D points;
   * the unsharded gate x·(next(x) + x) and `np.roll`, for the halo
-    exchange (rotations forward, backward and by a whole block).
+    exchange (rotations forward, backward and by a whole block, on one
+    column and on a (16, B, m) stack);
+  * the single-device `Domain` for the row-block transforms
+    (`coeff_to_extended_rows` is the rank's block of `coeff_to_extended`,
+    `extended_rows_to_coeff` gives the whole coefficients back), at a size
+    the mesh splits and at one it does not;
+  * the single-device `quotient_coeff` of a constraint system built here
+    (a gate with rotations -1, 0, +1, a plookup, a LogUp range lookup of
+    two batches, a copy constraint; random coefficient columns at k = 5),
+    with the collectives of its fold (no gather, every extended block
+    n_ext/D rows) and of its end (the quotient's coefficients, gathered).
 Inputs come from `np.random.default_rng(seed)`; tolerance 0 everywhere.
 The launcher must raise within its deadline when a rank raises or runs
 past it.
 """
 
+import functools
 import time
 
 import numpy as np
@@ -32,12 +43,15 @@ from tinyram_tpu.shard.ntt import _twiddle_matrix
 from tinyram_tpu_torch.curve.vesta import from_affine_host
 from tinyram_tpu_torch.field import FP
 from tinyram_tpu_torch.ipa.srs import _hash_to_curve
+from tinyram_tpu_torch.plonk.circuit import ConstraintSystem
+from tinyram_tpu_torch.plonk.prover import quotient_coeff
+from tinyram_tpu_torch.poly.domain import Domain
 from tinyram_tpu_torch.poly.ntt import ntt
-from tinyram_tpu_torch.shard import (RankError, backend_for, rank_devices,
-                                     run_on_mesh)
+from tinyram_tpu_torch.shard import (Mesh, RankError, backend_for,
+                                     rank_devices, run_on_mesh)
 from tinyram_tpu_torch.shard import paths
 from tinyram_tpu_torch.shard.ntt import _split_rc
-from tinyram_tpu_torch.shard.rows import gate_eval
+from tinyram_tpu_torch.shard.rows import gate_eval, rolled
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
@@ -49,6 +63,9 @@ A2A_CASES = [((16, 4, 8), 2, 1), ((16, 8, 4), 1, 2), ((16, 3, 4, 8), 3, 2),
              ((16, 3, 8, 4), 2, 3)]
 B = 3  # msm_many columns
 SHIFTS = (-3, -1, 2, 32)  # rotations of the halo exchange (32: a whole block)
+STACK_SHIFTS = (-4, 4)  # on a (16, 3, m) stack: rotation ±1 at scale 4
+Q_K = 5  # the quotient's constraint system: n = 32, n_ext = 128
+Q_EXT_CHUNK, Q_GATE_SLAB = 3, 2  # several lifts and gate slabs at this size
 
 
 def _limbs(rng, shape):
@@ -73,6 +90,71 @@ def _ints(limbs):
             for j in range(flat.shape[1])]
 
 
+def _quotient_cs():
+    """One of each constraint family of the quotient phase: a gate with
+    rotations -1, 0, +1 (and an instance column), a plookup, a LogUp range
+    lookup of five inputs (two batches), a copy constraint."""
+    cs = ConstraintSystem()
+    q, t = cs.fixed_column("q"), cs.fixed_column("t")
+    a, b, c = (cs.advice_column(name) for name in "abc")
+    pub = cs.instance_column("pub")
+    cs.blinding_factors = 3
+    cs.gate("rot", [q.cur() * (a.next() - a.cur() - b.prev()),
+                    q.cur() * (c.cur() - pub.cur())])
+    cs.gate("next", q.cur() * c.next() * b.cur())
+    cs.lookup("lk", [q.cur() * a.cur()], [t.cur()])
+    cs.range_lookup("rl", [a.cur(), b.cur(), c.cur(), a.cur() + b.cur(),
+                           b.cur() - c.cur()], t.cur())
+    cs.copy(a, 0, c, 1)
+    return cs
+
+
+def _quotient_pids(cs):
+    """The coefficient columns `quotient_coeff` reads."""
+    pids = [("fixed", i) for i in range(cs.num_fixed)]
+    pids += [("advice", i) for i in range(cs.num_advice)]
+    pids += [("instance", i) for i in range(cs.num_instance)]
+    pids += [("sigma", j) for j in range(len(cs.permutation_columns()))]
+    pids += [("zperm",)]
+    for li in range(len(cs.lookups)):
+        pids += [("la", li), ("ls", li), ("lz", li)]
+    for ri, rl in enumerate(cs.range_lookups):
+        pids += [("rm", ri), ("rt", ri), ("rz", ri)]
+        pids += [("rh", ri, b) for b in range(len(rl.batches()))]
+    return pids
+
+
+@functools.lru_cache(maxsize=None)
+def _quotient_inputs():
+    """(the constraint system, its coefficient columns, (θ, β, γ, y)), the
+    same at every D."""
+    rng = np.random.default_rng(99)
+    cs = _quotient_cs()
+    cols = {pid: _limbs(rng, (1 << Q_K,)) for pid in _quotient_pids(cs)}
+    return cs, cols, tuple(int(v) for v in rng.integers(1, 1 << 62, size=4))
+
+
+@functools.lru_cache(maxsize=None)
+def _quotient_want():
+    """The single-device `quotient_coeff` of `_quotient_inputs()`."""
+    cs, cols, ch = _quotient_inputs()
+    dom = Domain(FP, Q_K, Q_K + cs.extension_factor_log2(), "cpu")
+    assert dom.n_ext == 4 * dom.n
+    return quotient_coeff(
+        cs, dom, {pid: torch.as_tensor(c) for pid, c in cols.items()}, ch,
+        cs.usable_rows(dom.n), cs.permutation_columns(), Q_EXT_CHUNK,
+        Q_GATE_SLAB).numpy()
+
+
+def _rows_case(D, split):
+    """(k, extended k) of the row-block transforms: (7, 7) splits at D = 2
+    and 4, and its coefficients fill every rank's block; (1, 1) at D = 2
+    and (3, 3) at D = 4 leave C = 1 or 2 (`_split_rc`) not divisible by D."""
+    if split:
+        return 7, 7
+    return (1, 1) if D == 2 else (3, 3)
+
+
 def _inputs(D):
     rng = np.random.default_rng(100 + D)
     a2a = [rng.integers(0, 1 << 16, size=(D,) + shape).astype(np.int32)
@@ -85,8 +167,13 @@ def _inputs(D):
     sc[:, 1] = 0  # one zero scalar
     sc_many = _limbs(rng, (B, 8 * D))
     gate = _limbs(rng, (32 * D,))
+    stack = _limbs(rng, (3, 32 * D))
+    rows = {split: _limbs(rng, (2, 1 << _rows_case(D, split)[0]))
+            for split in (True, False)}
+    cs, q_cols, q_ch = _quotient_inputs()
     return dict(a2a=a2a, cols=cols, batch=batch, pts=pts, pb=pb, sc=sc,
-                sc_many=sc_many, gate=gate)
+                sc_many=sc_many, gate=gate, stack=stack, rows=rows, cs=cs,
+                q_cols=q_cols, q_ch=q_ch)
 
 
 def _calls(inp):
@@ -101,6 +188,14 @@ def _calls(inp):
               (paths.msm_path, (inp["sc_many"], inp["pb"])),
               (paths.gate_path, (inp["gate"],))]
     calls += [(paths.roll_path, (inp["gate"], s)) for s in SHIFTS]
+    calls += [(paths.roll_path, (inp["stack"], s)) for s in STACK_SHIFTS]
+    D = inp["stack"].shape[-1] // 32
+    calls += [(paths.extended_rows_path, (inp["rows"][split],)
+               + _rows_case(D, split)) for split in (True, False)]
+    cs = inp["cs"]
+    calls += [(paths.quotient_path, (cs, Q_K, inp["q_cols"], inp["q_ch"],
+                                     cs.usable_rows(1 << Q_K), Q_EXT_CHUNK,
+                                     Q_GATE_SLAB))]
     return calls
 
 
@@ -116,6 +211,9 @@ def mesh_run(request):
         names += [f"ntt{log_n}", f"intt{log_n}", f"tw{log_n}", f"itw{log_n}"]
     names += ["ntt_batch", "msm", "msm_many", "gate"]
     names += [f"roll{s}" for s in SHIFTS]
+    names += [f"stack_roll{s}" for s in STACK_SHIFTS]
+    names += ["rows_split", "rows_unsplit", "quotient"]
+    assert len(names) == len(ranks[0])
     return D, inp, {name: [r[i] for r in ranks] for i, name in enumerate(names)}
 
 
@@ -217,6 +315,88 @@ def test_rolled_blocks_match_roll(mesh_run, shift):
     want = np.roll(inp["gate"], -shift, axis=-1)
     for got in res[f"roll{shift}"]:
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shift", STACK_SHIFTS)
+def test_rolled_stacks_match_roll(mesh_run, shift):
+    """A (16, 3, m) stack of blocks, as the quotient phase rolls them."""
+    _, inp, res = mesh_run
+    want = np.roll(inp["stack"], -shift, axis=-1)
+    for got in res[f"stack_roll{shift}"]:
+        np.testing.assert_array_equal(got, want)
+
+
+def test_rolled_raises_past_a_block():
+    """A shift longer than the block raises before any collective."""
+    mesh = Mesh(group=None, size=2, rank=0, device=torch.device("cpu"),
+                backend="gloo")
+    x = torch.zeros((16, 2, 4), dtype=torch.int32)
+    for shift in (5, -5):
+        with pytest.raises(ValueError, match="past a block of 4 rows"):
+            rolled(mesh, x, shift)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+def test_coeff_to_extended_rows_is_the_ranks_block(mesh_run, split):
+    """Each rank's block of the single-device coset evaluations, n_ext/D
+    rows of each column; a split lift moves only all-to-alls, an unsplit
+    one is counted (its two columns) and moves nothing."""
+    D, inp, res = mesh_run
+    k, ext_k = _rows_case(D, split)
+    a = inp["rows"][split]
+    whole = Domain(FP, k, ext_k, "cpu").coeff_to_extended(
+        torch.as_tensor(a)).numpy()
+    m = (1 << ext_k) // D
+    for r, got in enumerate(res[f"rows_{'' if split else 'un'}split"]):
+        assert got["block"].shape == (16, 2, m)
+        np.testing.assert_array_equal(got["block"],
+                                      whole[..., r * m:(r + 1) * m])
+        if split:
+            assert set(got["lift"]) == {"all_to_all"}
+        else:
+            assert got["lift"] == {"unsplit": 2}
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+def test_extended_rows_to_coeff_gathers_the_coefficients(mesh_run, split):
+    """The blocks give the whole coefficients (zero-padded to n_ext) back
+    on every rank, with one gather of (D-1)/D of each column."""
+    D, inp, res = mesh_run
+    k, ext_k = _rows_case(D, split)
+    a = inp["rows"][split]
+    n_ext = 1 << ext_k
+    want = np.zeros((16, 2, n_ext), dtype=np.int32)
+    want[..., :a.shape[-1]] = a
+    dom = Domain(FP, k, ext_k, "cpu")
+    np.testing.assert_array_equal(
+        dom.extended_to_coeff(dom.coeff_to_extended(torch.as_tensor(a))),
+        want)
+    for got in res[f"rows_{'' if split else 'un'}split"]:
+        np.testing.assert_array_equal(got["back"], want)
+        assert got["inverse"]["all_gather"] == 2 * n_ext // D * (D - 1)
+
+
+def test_quotient_coeff_equals_single_device(mesh_run):
+    """Every rank's `quotient_coeff` equals the single-device one bit for
+    bit (the same columns, challenges and chunking)."""
+    _, _, res = mesh_run
+    want = _quotient_want()
+    assert want.shape == (16, 4 << Q_K) and want.any()
+    for got in res["quotient"]:
+        np.testing.assert_array_equal(got["q"], want)
+
+
+def test_quotient_fold_gathers_nothing(mesh_run):
+    """The fold lifts and holds n_ext/D rows a column, exchanges halos and
+    gathers nothing; after it, the quotient's coefficients are the only
+    gather: (D-1)/D of n_ext from each rank."""
+    D, inp, res = mesh_run
+    n_ext = (1 << Q_K) << inp["cs"].extension_factor_log2()
+    for got in res["quotient"]:
+        assert got["lifted"] == [n_ext // D] and got["folded"] == n_ext // D
+        assert set(got["fold"]) == {"all_to_all", "permute"}
+        assert got["after"]["all_gather"] == n_ext // D * (D - 1)
+        assert set(got["after"]) == {"all_to_all", "all_gather"}
 
 
 def test_launcher_raises_when_a_rank_raises():

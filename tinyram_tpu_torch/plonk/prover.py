@@ -3,9 +3,12 @@
 Port of `tinyram_tpu/plonk/prover.py`, with its mesh branch: with
 `mesh=`, every rank of the mesh runs this same prover under the mesh
 context, so the domain transforms become the all-to-all sharded NTT and
-the commit and IPA MSMs point-sharded partials (`shard/`); the transforms'
-outputs are gathered, so the elementwise phases still hold whole columns
-on every rank (the row-sharded quotient phase is not ported yet).  Same
+the commit and IPA MSMs point-sharded partials (`shard/`).  The quotient
+phase (`quotient_coeff`) runs on row blocks, as GSPMD keeps the JAX
+prover's (`tinyram_tpu/plonk/prover.py:577-592`): each rank lifts and
+holds its n_ext/D rows of every extended column, rotations are halo
+exchanges, and only the quotient's coefficients are gathered.  The other
+phases gather every transform's output and hold whole columns.  Same
 protocol, same transcript traffic, same order of random draws: the only
 randomness is `rng.randbelow` (the `secrets` module by default), so a
 seeded `rng` reproduces the reference's proof bytes under the same seeded
@@ -61,8 +64,10 @@ FOLD_SLAB = 64  # columns per multiopen fold
 class _Phases:
     """Records each prover phase into `counters` as "prover.<name>": its
     wall time once the device has finished, and (as its op count) the
-    kernel launches it made; `hook(name, seconds, launches)` is called
-    after each phase if given."""
+    kernel launches it made; under a mesh, each collective kind that moved
+    in the phase as "prover.<name>/<kind>" (the field elements this rank
+    sent and their seconds, `shard/mesh.py`); `hook(name, seconds,
+    launches)` is called after each phase if given."""
 
     def __init__(self, device, hook=None):
         self.device = device
@@ -72,12 +77,18 @@ class _Phases:
     def _start(self):
         self.t0 = time.time()
         self.l0 = kernels.total_launches()
+        self.m0 = counters.snapshot("mesh.")
 
     def end(self, name: str) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         dt, launches = time.time() - self.t0, kernels.total_launches() - self.l0
         counters.add(f"prover.{name}", launches, dt)
+        for key, (ops, secs) in counters.snapshot("mesh.").items():
+            ops0, secs0 = self.m0.get(key, (0, 0.0))
+            if ops != ops0 or secs != secs0:
+                counters.add(f"prover.{name}/{key[len('mesh.'):]}",
+                             ops - ops0, secs - secs0)
         if self.hook is not None:
             self.hook(name, dt, launches)
         self._start()
@@ -116,15 +127,35 @@ def _prefix_sum_exclusive(arr: torch.Tensor) -> torch.Tensor:
     return torch.cat([zero, inc[..., :-1]], dim=-1)
 
 
-def _rolled(arr: torch.Tensor, rotation: int, scale: int = 1) -> torch.Tensor:
-    if rotation == 0:
-        return arr
-    return torch.roll(arr, -rotation * scale, dims=-1)
+class _Roll:
+    """`roll(x, shift)`: the rows of x rotated so that row i holds row
+    i + shift of the column (`torch.roll(x, -shift)`).  With no mesh x is
+    the whole column; with a mesh it is this rank's row block, and the rows
+    past the block come by halo exchange (`shard/rows.py` `rolled`, a
+    collective every rank issues in the same order)."""
+
+    def __init__(self, mesh=None):
+        self.mesh = mesh
+
+    def __call__(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        if shift == 0:
+            return x
+        if self.mesh is None:
+            return torch.roll(x, -shift, dims=-1)
+        from ..shard.rows import rolled
+
+        return rolled(self.mesh, x, shift)
 
 
-def _eval_exprs_on(exprs, get_col, scale: int = 1, cache: dict | None = None):
+_WHOLE = _Roll()  # whole columns: torch.roll
+
+
+def _eval_exprs_on(exprs, get_col, scale: int = 1, cache: dict | None = None,
+                   roll: _Roll = _WHOLE):
     """Evaluate expressions over column tensors with rotation rolls,
-    structurally identical expressions once over stacked columns."""
+    structurally identical expressions once over stacked columns.  The
+    columns are rolled in the order `batched_evaluate` visits the
+    expressions' variables, the same on every rank of a mesh."""
     roll_cache = {} if cache is None else cache
     device = None
 
@@ -132,8 +163,8 @@ def _eval_exprs_on(exprs, get_col, scale: int = 1, cache: dict | None = None):
         nonlocal device
         key = (v.kind, v.index, v.rotation)
         if key not in roll_cache:
-            roll_cache[key] = _rolled(get_col(v.kind, v.index), v.rotation,
-                                      scale)
+            roll_cache[key] = roll(get_col(v.kind, v.index),
+                                   v.rotation * scale)
         device = roll_cache[key].device
         return roll_cache[key]
 
@@ -159,13 +190,14 @@ def _compress(vals: list[torch.Tensor], th: torch.Tensor) -> torch.Tensor:
 
 
 def _lift_chunked(dom, stack: torch.Tensor, ext_chunk: int) -> torch.Tensor:
-    """Coefficients (16, V, n) -> coset evaluations (16, V, n_ext), at most
-    `ext_chunk` columns per NTT call."""
+    """Coefficients (16, V, n) -> this rank's rows (16, V, n_ext/D) of their
+    coset evaluations (all n_ext with no mesh), at most `ext_chunk` columns
+    per NTT call."""
     v = stack.shape[1]
     if v <= ext_chunk:
-        return dom.coeff_to_extended(stack)
+        return dom.coeff_to_extended_rows(stack)
     return torch.cat(
-        [dom.coeff_to_extended(stack[:, lo : lo + ext_chunk])
+        [dom.coeff_to_extended_rows(stack[:, lo : lo + ext_chunk])
          for lo in range(0, v, ext_chunk)],
         dim=1,
     )
@@ -180,10 +212,10 @@ def _l2c_chunked(dom, cols: list, ext_chunk: int) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
-def _fold(constraints: list, w: torch.Tensor, n_ext: int) -> torch.Tensor:
-    """Σ_i w_i · constraint_i for (16, n_ext) constraints, w (16, S, 1)."""
+def _fold(constraints: list, w: torch.Tensor, rows: int) -> torch.Tensor:
+    """Σ_i w_i · constraint_i for (16, rows) constraints, w (16, S, 1)."""
     c_stack = torch.stack(
-        [c.expand(16, n_ext) for c in constraints], dim=1
+        [c.expand(16, rows) for c in constraints], dim=1
     )
     return tree_sum(FP, FP.mul(c_stack, w), axis=1)
 
@@ -195,19 +227,20 @@ def _theta_powers(th: torch.Tensor, count: int) -> list:
     return pows
 
 
-def _compress_exprs_chunked(exprs, th, get_col, scale: int, n_ext: int,
-                            chunk: int = 8) -> torch.Tensor:
-    """Σ_i θ^i·expr_i on the extended domain, `chunk` expressions at once."""
+def _compress_exprs_chunked(exprs, th, get_col, scale: int, rows: int,
+                            roll: _Roll, chunk: int = 8) -> torch.Tensor:
+    """Σ_i θ^i·expr_i on the extended domain (`rows` of it), `chunk`
+    expressions at once."""
     B = len(exprs)
     if B == 1:
-        return _eval_exprs_on(exprs, get_col, scale, {})[0]
+        return _eval_exprs_on(exprs, get_col, scale, {}, roll)[0]
     pows = _theta_powers(th, B)
     acc = None
     for lo in range(0, B, chunk):
         sub = exprs[lo : lo + chunk]
-        vals = _eval_exprs_on(sub, get_col, scale, {})
+        vals = _eval_exprs_on(sub, get_col, scale, {}, roll)
         w = torch.stack([pows[lo + j] for j in range(len(sub))], dim=1)
-        part = _fold(vals, w, n_ext)
+        part = _fold(vals, w, rows)
         acc = part if acc is None else FP.add(acc, part)
     return acc
 
@@ -224,9 +257,10 @@ def _gate_blocks(cs, slab: int):
 
 
 def _lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_, astack, tables,
-                 theta, beta, gamma, w):
-    """The five plookup rules of one lookup, y-weighted (16, n_ext)."""
-    n_ext = dom.n_ext
+                 theta, beta, gamma, w, roll: _Roll):
+    """The five plookup rules of one lookup, y-weighted, on the rows of
+    `tables` (16, 3, rows)."""
+    rows = tables.shape[-1]
     pos = {v: i for i, v in enumerate(vars_)}
     qext = _lift_chunked(dom, qstack, ext_chunk)
     aext = _lift_chunked(dom, astack, ext_chunk)
@@ -235,12 +269,14 @@ def _lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_, astack, tables,
     def get_col(kind, index):
         return qext[:, pos[(kind, index)]]
 
-    a_ext = _compress_exprs_chunked(lk.inputs, theta, get_col, scale, n_ext)
-    s_ext = _compress_exprs_chunked(lk.tables, theta, get_col, scale, n_ext)
+    a_ext = _compress_exprs_chunked(lk.inputs, theta, get_col, scale, rows,
+                                    roll)
+    s_ext = _compress_exprs_chunked(lk.tables, theta, get_col, scale, rows,
+                                    roll)
     ap, sp, zl = aext[:, 0], aext[:, 1], aext[:, 2]
-    zl_next = torch.roll(zl, -scale, dims=-1)
-    ap_prev = torch.roll(ap, scale, dims=-1)
-    one = FP.ones((n_ext,), qstack.device)
+    zl_next = roll(zl, scale)
+    ap_prev = roll(ap, -scale)
+    one = FP.ones((rows,), qstack.device)
     constraints = [
         FP.mul(l0, FP.sub(zl, one)),
         FP.mul(l_last, FP.sub(FP.mul(zl, zl), zl)),
@@ -254,15 +290,16 @@ def _lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_, astack, tables,
         FP.mul(l0, FP.sub(ap, sp)),
         FP.mul(active, FP.mul(FP.sub(ap, sp), FP.sub(ap, ap_prev))),
     ]
-    return _fold(constraints, w, n_ext)
+    return _fold(constraints, w, rows)
 
 
 def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
-                beta, w):
-    """The LogUp rules of one range lookup, y-weighted (16, n_ext), in the
-    verifier's order [l0·z, l_last·z, z-diff, batch_0 … batch_{B-1}, tail].
-    astack holds m, h_T, z, h_0 … h_{B-1} coefficients."""
-    n_ext = dom.n_ext
+                beta, w, roll: _Roll):
+    """The LogUp rules of one range lookup, y-weighted, on the rows of
+    `tables` (16, 3, rows), in the verifier's order [l0·z, l_last·z,
+    z-diff, batch_0 … batch_{B-1}, tail].  astack holds m, h_T, z, h_0 …
+    h_{B-1} coefficients."""
+    rows = tables.shape[-1]
     dev = qstack.device
     pos = {v: i for i, v in enumerate(vars_)}
     batches = rl.batches()
@@ -271,7 +308,7 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
     l0, l_last, active = tables[:, 0], tables[:, 1], tables[:, 2]
     m_ext, ht_ext, z = aext[:, 0], aext[:, 1], aext[:, 2]
     h_exts = [aext[:, 3 + b] for b in range(nb)]
-    z_next = torch.roll(z, -scale, dims=-1)
+    z_next = roll(z, scale)
     sum_h = h_exts[0]
     for hh in h_exts[1:]:
         sum_h = FP.add(sum_h, hh)
@@ -281,9 +318,9 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
             FP.mul(l_last, z),
             FP.mul(active, FP.sub(FP.sub(z_next, z), FP.sub(sum_h, ht_ext))),
         ],
-        w[:, 0:3], n_ext,
+        w[:, 0:3], rows,
     )
-    one = FP.ones((n_ext,), dev)
+    one = FP.ones((rows,), dev)
     j0 = 0
     for b, batch in enumerate(batches):
         exprs = rl.inputs[j0 : j0 + len(batch)]
@@ -296,7 +333,7 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
         def get_col(kind, index, qext=qext, bpos=bpos):
             return qext[:, bpos[(kind, index)]]
 
-        vals = _eval_exprs_on(exprs, get_col, scale, {})
+        vals = _eval_exprs_on(exprs, get_col, scale, {}, roll)
         ds = [FP.add(v, beta) for v in vals]
         prod_all = ds[0]
         for dd in ds[1:]:
@@ -320,9 +357,137 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
     def get_t(kind, index):
         return qext[:, t_pos[(kind, index)]]
 
-    t_ext = _eval_exprs_on([rl.table], get_t, scale, {})[0]
+    t_ext = _eval_exprs_on([rl.table], get_t, scale, {}, roll)[0]
     c = FP.sub(FP.mul(ht_ext, FP.add(t_ext, beta)), m_ext)
     return FP.add(acc, FP.mul(c, w[:, 3 + nb]))
+
+
+def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
+                   perm_cols: list, ext_chunk: int = EXT_CHUNK,
+                   gate_slab: int = GATE_SLAB, on_folded=None) -> torch.Tensor:
+    """Phase 5 of `create_proof`: the quotient's coefficients (16, n_ext),
+    whole on every rank, from the coefficient columns `coeff` (pid ->
+    (16, n)) and the challenges (θ, β, γ, y).
+
+    Constraint blocks (gate slabs, the permutation, each lookup, each LogUp
+    argument) take their columns in the coefficient domain and lift them to
+    the extended coset themselves, so at most one block's extended columns
+    are alive at a time.  Under a mesh context each rank lifts and holds
+    only its n_ext/D rows of every extended column and table
+    (`Domain.coeff_to_extended_rows`, `*_rows`), every rotation is a halo
+    exchange (`_Roll`), and the only gather is of the quotient's
+    coefficients after the inverse transform (`extended_rows_to_coeff`),
+    as GSPMD keeps the JAX prover's quotient phase on row blocks
+    (`tinyram_tpu/plonk/prover.py:577-592`).  With no mesh every block is
+    the whole column.  `on_folded(acc)` is called with the folded
+    constraints (this rank's rows) before the division by Z_H."""
+    from ..shard.context import current_mesh
+
+    theta, beta, gamma, y = challenges
+    dev = dom.device
+    n = dom.n
+    scale = dom.n_ext // n
+    roll = _Roll(current_mesh())
+
+    def const(v: int) -> torch.Tensor:
+        return FP.const(v, 1, dev)  # (16, 1)
+
+    theta_d, beta_d, gamma_d = const(theta), const(beta), const(gamma)
+    l0_ext = dom.l0_evals_ext_rows()
+    rows = l0_ext.shape[-1]
+    one_ext = FP.ones((rows,), dev)
+    # usable-rows selectors: l_last = l_u; active = 1 − Σ_{i≥u} l_i
+    l_last_ext = dom.lagrange_sum_ext_rows((u,))
+    active_ext = FP.sub(one_ext,
+                        dom.lagrange_sum_ext_rows(tuple(range(u, n))))
+    tables3 = torch.stack([l0_ext, l_last_ext, active_ext], dim=1)
+
+    all_polys = [p for g in cs.gates for p in g.polys]
+    K = (
+        len(all_polys)
+        + (3 if perm_cols else 0)
+        + 5 * len(cs.lookups)
+        + sum(4 + len(rl.batches()) for rl in cs.range_lookups)
+    )
+    y_pows = [pow(y, K - 1 - i, P) for i in range(K)]
+    fold_state = {"acc": None, "i": 0}
+
+    def _take_w(count: int) -> torch.Tensor:
+        i0 = fold_state["i"]
+        fold_state["i"] = i0 + count
+        return FP.encode(y_pows[i0 : i0 + count], device=dev)[:, :, None]
+
+    def _add_part(part: torch.Tensor):
+        fold_state["acc"] = (
+            part if fold_state["acc"] is None else FP.add(fold_state["acc"], part)
+        )
+
+    for exprs, vars_ in _gate_blocks(cs, gate_slab):
+        pos = {v: i for i, v in enumerate(vars_)}
+        ext = _lift_chunked(
+            dom, torch.stack([coeff[v] for v in vars_], dim=1), ext_chunk
+        )
+        outs = _eval_exprs_on(
+            exprs, lambda kind, index: ext[:, pos[(kind, index)]], scale, {},
+            roll)
+        _add_part(_fold(outs, _take_w(len(exprs)), rows))
+        del ext, outs
+    if perm_cols:
+        ext_c: dict = {}  # filled in program order: the same on every rank
+
+        def ext(pid):
+            if pid not in ext_c:
+                ext_c[pid] = dom.coeff_to_extended_rows(coeff[pid])
+            return ext_c[pid]
+
+        x_ext = dom.x_evals_ext_rows()
+        constraints = []
+        z = ext(("zperm",))
+        z_next = roll(z, scale)
+        constraints.append(FP.mul(l0_ext, FP.sub(z, one_ext)))
+        constraints.append(FP.mul(l_last_ext, FP.sub(FP.mul(z, z), z)))
+        d = delta()
+        # Z(ωX)·Π(v + β·σ_j + γ) − Z(X)·Π(v + β·δ^j·X + γ) = 0
+        left, right = z_next, z
+        for j, col in enumerate(perm_cols):
+            v = ext((col.kind, col.index))
+            dj = pow(d, j, P) * beta % P
+            left = FP.mul(
+                left, FP.add(FP.add(v, FP.mul(beta_d, ext(("sigma", j)))),
+                             gamma_d))
+            right = FP.mul(
+                right, FP.add(FP.add(v, FP.mul(const(dj), x_ext)), gamma_d))
+        constraints.append(FP.mul(active_ext, FP.sub(left, right)))
+        _add_part(_fold(constraints, _take_w(3), rows))
+    for li, lk in enumerate(cs.lookups):
+        vars_ = sorted(
+            {(v.kind, v.index) for v in queried_vars(lk.inputs + lk.tables)}
+        )
+        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
+        astack = torch.stack(
+            [coeff[("la", li)], coeff[("ls", li)], coeff[("lz", li)]], dim=1
+        )
+        _add_part(_lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_,
+                               astack, tables3, theta_d, beta_d, gamma_d,
+                               _take_w(5), roll))
+    for ri, rl in enumerate(cs.range_lookups):
+        vars_ = sorted(
+            {(v.kind, v.index) for v in queried_vars(rl.inputs + [rl.table])}
+        )
+        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
+        astack = torch.stack(
+            [coeff[("rm", ri)], coeff[("rt", ri)], coeff[("rz", ri)]]
+            + [coeff[("rh", ri, b)] for b in range(len(rl.batches()))],
+            dim=1,
+        )
+        _add_part(_range_fold(rl, dom, scale, ext_chunk, qstack, vars_,
+                              astack, tables3, beta_d,
+                              _take_w(4 + len(rl.batches())), roll))
+    assert fold_state["i"] == K, (fold_state["i"], K)
+    acc = fold_state["acc"]
+    if on_folded is not None:
+        on_folded(acc)
+    return dom.extended_rows_to_coeff(dom.divide_by_vanishing(acc))
 
 
 def permute_lookup(a_vals: list[int], s_vals: list[int]):
@@ -415,7 +580,6 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     dom = pk.domain
     dev = dom.device
     n = dom.n
-    scale = dom.n_ext // n
     asg.finalize()
     tw = tw or TranscriptWriter()
 
@@ -730,105 +894,11 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     phases.end("grand products")
     y = tw.challenge()
 
-    # 5. quotient: constraint blocks (gate slabs, each lookup, each LogUp
-    # argument) take their columns in the coefficient domain and lift them
-    # to the extended coset themselves, so at most one block's extended
-    # columns are alive at a time
+    # 5. quotient
+    q_coeff_full = quotient_coeff(
+        cs, dom, coeff, (theta, beta, gamma, y), u, perm_cols, ext_chunk,
+        gate_slab, on_folded=lambda _: phases.end("constraint ext eval"))
     n_ext = dom.n_ext
-    l0_ext = torch.as_tensor(dom.l0_evals_ext(), device=dev)
-    one_ext = FP.ones((n_ext,), dev)
-    # usable-rows selectors: l_last = l_u; active = 1 − Σ_{i≥u} l_i
-    l_last_ext = dom.lagrange_sum_ext((u,))
-    active_ext = FP.sub(one_ext, dom.lagrange_sum_ext(tuple(range(u, n))))
-    tables3 = torch.stack([l0_ext, l_last_ext, active_ext], dim=1)
-
-    all_polys = [p for g in cs.gates for p in g.polys]
-    K = (
-        len(all_polys)
-        + (3 if perm_cols else 0)
-        + 5 * len(cs.lookups)
-        + sum(4 + len(rl.batches()) for rl in cs.range_lookups)
-    )
-    y_pows = [pow(y, K - 1 - i, P) for i in range(K)]
-    fold_state = {"acc": None, "i": 0}
-
-    def _take_w(count: int) -> torch.Tensor:
-        i0 = fold_state["i"]
-        fold_state["i"] = i0 + count
-        return FP.encode(y_pows[i0 : i0 + count], device=dev)[:, :, None]
-
-    def _add_part(part: torch.Tensor):
-        fold_state["acc"] = (
-            part if fold_state["acc"] is None else FP.add(fold_state["acc"], part)
-        )
-
-    for exprs, vars_ in _gate_blocks(cs, gate_slab):
-        pos = {v: i for i, v in enumerate(vars_)}
-        ext = _lift_chunked(
-            dom, torch.stack([coeff[v] for v in vars_], dim=1), ext_chunk
-        )
-        outs = _eval_exprs_on(
-            exprs, lambda kind, index: ext[:, pos[(kind, index)]], scale, {}
-        )
-        _add_part(_fold(outs, _take_w(len(exprs)), n_ext))
-        del ext, outs
-    if perm_cols:
-        ext_c: dict = {}
-
-        def ext(pid):
-            if pid not in ext_c:
-                ext_c[pid] = dom.coeff_to_extended(coeff[pid])
-            return ext_c[pid]
-
-        x_ext = torch.as_tensor(dom.x_evals_ext(), device=dev)
-        constraints = []
-        z = ext(("zperm",))
-        z_next = _rolled(z, 1, scale)
-        constraints.append(FP.mul(l0_ext, FP.sub(z, one_ext)))
-        constraints.append(FP.mul(l_last_ext, FP.sub(FP.mul(z, z), z)))
-        d = delta()
-        # Z(ωX)·Π(v + β·σ_j + γ) − Z(X)·Π(v + β·δ^j·X + γ) = 0
-        left, right = z_next, z
-        for j, col in enumerate(perm_cols):
-            v = ext((col.kind, col.index))
-            dj = pow(d, j, P) * beta % P
-            left = FP.mul(
-                left, FP.add(FP.add(v, FP.mul(beta_d, ext(("sigma", j)))),
-                             gamma_d))
-            right = FP.mul(
-                right, FP.add(FP.add(v, FP.mul(const(dj), x_ext)), gamma_d))
-        constraints.append(FP.mul(active_ext, FP.sub(left, right)))
-        _add_part(_fold(constraints, _take_w(3), n_ext))
-    for li, lk in enumerate(cs.lookups):
-        vars_ = sorted(
-            {(v.kind, v.index) for v in queried_vars(lk.inputs + lk.tables)}
-        )
-        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
-        astack = torch.stack(
-            [coeff[("la", li)], coeff[("ls", li)], coeff[("lz", li)]], dim=1
-        )
-        _add_part(_lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_,
-                               astack, tables3, theta_d, beta_d, gamma_d,
-                               _take_w(5)))
-    for ri, rl in enumerate(cs.range_lookups):
-        vars_ = sorted(
-            {(v.kind, v.index) for v in queried_vars(rl.inputs + [rl.table])}
-        )
-        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
-        astack = torch.stack(
-            [coeff[("rm", ri)], coeff[("rt", ri)], coeff[("rz", ri)]]
-            + [coeff[("rh", ri, b)] for b in range(len(rl.batches()))],
-            dim=1,
-        )
-        _add_part(_range_fold(rl, dom, scale, ext_chunk, qstack, vars_,
-                              astack, tables3, beta_d,
-                              _take_w(4 + len(rl.batches()))))
-    assert fold_state["i"] == K, (fold_state["i"], K)
-    acc = fold_state["acc"]
-
-    phases.end("constraint ext eval")
-    q_ext = dom.divide_by_vanishing(acc)
-    q_coeff_full = dom.extended_to_coeff(q_ext)
     n_chunks = n_ext // n
     q_chunks = q_coeff_full.reshape(16, n_chunks, n)
     q_lag = dom.coeff_to_lagrange(q_chunks)

@@ -3,11 +3,17 @@
 Port of `tinyram_tpu/poly/domain.py`, with its mesh branch: under a mesh
 context (`shard/context.py`) a transform whose four-step split the mesh
 divides runs as the all-to-all sharded NTT on this rank's block of its
-input, and the output is gathered, so the prover sees whole columns (the
-row-sharded quotient phase, which would keep them sharded, is not ported
-yet).  With its `domain_cache`: one `Domain` per (field, k, extended k,
-device), so keygen, the key loader and the verifier share one domain and
-its cached tables.
+input.  The whole-column transforms (`lagrange_to_coeff`,
+`coeff_to_extended`, ...) gather its output.  The row-block ones, which
+the prover's quotient phase runs, do not: `coeff_to_extended_rows` returns
+this rank's n_ext/D rows of the coset evaluations, and
+`extended_rows_to_coeff` gathers only the coefficients it returns.  So a
+rank holds its block of every extended column, as the JAX package's
+shard_map out_specs leave it under GSPMD (`tinyram_tpu/plonk/prover.py:
+577-592`).  The extended tables have block forms (`*_rows`) cut from the
+cached whole tables.  With its `domain_cache`: one `Domain` per (field, k,
+extended k, device), so keygen, the key loader and the verifier share one
+domain and its cached tables.
 
 A `Domain` owns the size-n subgroup H (circuit rows) and the extended coset
 g·H_ext used for quotient evaluation.  The coset generator is the field's
@@ -48,24 +54,35 @@ class Domain:
 
     # ------------------------------------------------------------ transforms
 
-    def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    def _ntt_local(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
         """Single-device NTT by the algorithm of the active context
-        (`utils/algorithms.py`), or, under a mesh context whose size
-        divides the four-step split, the all-to-all sharded NTT of this
-        rank's block, gathered."""
+        (`utils/algorithms.py`)."""
+        return ntt(self.field, a, inverse=inverse, method=ntt_method())
+
+    def _splits(self, mesh, n: int) -> bool:
+        """Whether `mesh` splits a transform of n points (`ntt_sharded`
+        needs Fp and R % D == C % D == 0)."""
+        from ..shard.ntt import _split_rc
+
+        R, C = _split_rc(n.bit_length() - 1)
+        D = mesh.size
+        return self.field.params.name == "Fp" and R % D == 0 and C % D == 0
+
+    def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
+        """`_ntt_local`, or, under a mesh context whose size divides the
+        four-step split, the all-to-all sharded NTT of this rank's block,
+        gathered."""
         from ..shard.context import current_mesh
 
         mesh = current_mesh()
         if mesh is not None:
-            from ..shard.ntt import _split_rc, ntt_sharded
+            if self._splits(mesh, a.shape[-1]):
+                from ..shard.ntt import ntt_sharded
 
-            n = a.shape[-1]
-            D = mesh.size
-            R, C = _split_rc(n.bit_length() - 1)
-            if self.field.params.name == "Fp" and R % D == 0 and C % D == 0:
                 out = ntt_sharded(mesh, mesh.block(a), inverse, self.field)
                 return mesh.all_gather(out, -1)
-        return ntt(self.field, a, inverse=inverse, method=ntt_method())
+            mesh.count_unsplit(a)
+        return self._ntt_local(a, inverse)
 
     def lagrange_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on H (natural ω^i order) -> coefficients."""
@@ -74,14 +91,17 @@ class Domain:
     def coeff_to_lagrange(self, a: torch.Tensor) -> torch.Tensor:
         return self._ntt(a, False)
 
-    def coeff_to_extended(self, a: torch.Tensor) -> torch.Tensor:
-        """Coefficients (len n or less) -> evaluations on the coset g·H_ext."""
+    def _pad_ext(self, a: torch.Tensor) -> torch.Tensor:
         pad = self.n_ext - a.shape[-1]
         if pad:
             a = torch.cat(
                 [a, self.field.zeros(a.shape[1:-1] + (pad,), a.device)], dim=-1
             )
-        a = coeff_scale(self.field, a, self.g_coset)
+        return a
+
+    def coeff_to_extended(self, a: torch.Tensor) -> torch.Tensor:
+        """Coefficients (len n or less) -> evaluations on the coset g·H_ext."""
+        a = coeff_scale(self.field, self._pad_ext(a), self.g_coset)
         return self._ntt(a, False)
 
     def extended_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
@@ -89,13 +109,70 @@ class Domain:
         a = self._ntt(a, True)
         return coeff_scale(self.field, a, self.g_coset_inv)
 
+    def coeff_to_extended_rows(self, a: torch.Tensor) -> torch.Tensor:
+        """Coefficients (16, ..., len n or less), whole on every rank ->
+        this rank's row block (16, ..., n_ext/D) of their evaluations on
+        g·H_ext: the sharded NTT's output as it is, no gather.  A mesh
+        that does not split the transform gets the block of the whole
+        one, counted in "mesh.unsplit".  With no mesh, `coeff_to_extended`
+        (the whole column)."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        if mesh is None:
+            return self.coeff_to_extended(a)
+        if not self._splits(mesh, self.n_ext):
+            mesh.count_unsplit(a)
+            return mesh.block(self._ntt_local(coeff_scale(
+                self.field, self._pad_ext(a), self.g_coset), False)).contiguous()
+        from ..shard.ntt import ntt_sharded
+
+        # this rank's block of the scaled, zero-padded coefficients
+        m = self.n_ext // mesh.size
+        lo = mesh.rank * m
+        body = a[..., lo:lo + m]
+        if body.shape[-1]:
+            body = coeff_scale(self.field, body, self.g_coset, offset=lo)
+        pad = m - body.shape[-1]
+        if pad:
+            body = torch.cat([body, self.field.zeros(
+                a.shape[1:-1] + (pad,), a.device)], dim=-1)
+        return ntt_sharded(mesh, body, False, self.field)
+
+    def extended_rows_to_coeff(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's row block of evaluations on g·H_ext -> the whole
+        coefficients (16, ..., n_ext) on every rank: the sharded inverse
+        NTT of the block, the coset scale of its rows, then one
+        `all_gather`.  A mesh that does not split the transform gathers
+        the evaluations instead (counted in "mesh.unsplit").  With no
+        mesh, `extended_to_coeff`."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        if mesh is None:
+            return self.extended_to_coeff(block)
+        if not self._splits(mesh, self.n_ext):
+            mesh.count_unsplit(block)
+            whole = mesh.all_gather(block, -1)
+            return coeff_scale(self.field, self._ntt_local(whole, True),
+                               self.g_coset_inv)
+        from ..shard.ntt import ntt_sharded
+
+        out = ntt_sharded(mesh, block, True, self.field)
+        out = coeff_scale(self.field, out, self.g_coset_inv,
+                          offset=mesh.rank * block.shape[-1])
+        return mesh.all_gather(out, -1)
+
     # ---------------------------------------------------------- vanishing poly
 
     def divide_by_vanishing(self, evals_ext: torch.Tensor) -> torch.Tensor:
-        """Divide coset-extended evaluations by Z_H(X) = X^n - 1.
+        """Divide coset-extended evaluations by Z_H(X) = X^n - 1: the
+        whole column, or a rank's row block of it (its length L divides
+        n_ext; a block of D ≤ n ranks starts at a multiple of L).
 
         Z_H(g·ω_ext^i) = g^n·ω_ext^{n·i} - 1 cycles with period n_ext/n, so
-        only that many inverses are needed (computed host-side).
+        only that many inverses are needed (computed host-side); a block
+        starts at a multiple of the period, so its table is the same.
         """
         p = self.field.modulus
         period = self.n_ext // self.n
@@ -108,8 +185,12 @@ class Domain:
             cur = (cur * wn) % p
         tbl = torch.as_tensor(_mont_table(self.field, vals),
                               device=evals_ext.device)  # (16, period)
-        full = tbl.repeat(1, self.n_ext // period)
-        shape = (N_LIMBS,) + (1,) * (evals_ext.dim() - 2) + (self.n_ext,)
+        length = evals_ext.shape[-1]
+        assert length % period == 0 and self.n_ext % length == 0, (
+            f"{length} rows: not a block of a mesh of at most n = {self.n} "
+            f"ranks over {self.n_ext}")
+        full = tbl.repeat(1, length // period)
+        shape = (N_LIMBS,) + (1,) * (evals_ext.dim() - 2) + (length,)
         return self.field.mul(evals_ext, full.reshape(shape))
 
     # ---------------------------------------------------------- host helpers
@@ -163,10 +244,37 @@ class Domain:
             lag = torch.as_tensor(
                 _mont_table(self.field, ind.tolist()), device=self.device
             )
-            self._lsum_ext[key] = self.coeff_to_extended(
-                self.lagrange_to_coeff(lag)
-            )
+            # single-device transforms on every rank: a table of the
+            # domain, the same whatever mesh is active (no collective)
+            coeff = self._ntt_local(lag, True)
+            self._lsum_ext[key] = self._ntt_local(coeff_scale(
+                self.field, self._pad_ext(coeff), self.g_coset), False)
         return self._lsum_ext[key]
+
+    # ------------------------------------------------- row blocks of tables
+
+    def _rows(self, table) -> torch.Tensor:
+        """This rank's row block of a whole extended table (host or device)
+        on the domain's device; the whole table with no mesh."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        if isinstance(table, np.ndarray):
+            if mesh is not None:
+                m = self.n_ext // mesh.size
+                table = table[..., mesh.rank * m:(mesh.rank + 1) * m]
+            return torch.as_tensor(np.ascontiguousarray(table),
+                                   device=self.device)
+        return table if mesh is None else mesh.block(table).contiguous()
+
+    def l0_evals_ext_rows(self) -> torch.Tensor:
+        return self._rows(self.l0_evals_ext())
+
+    def x_evals_ext_rows(self) -> torch.Tensor:
+        return self._rows(self.x_evals_ext())
+
+    def lagrange_sum_ext_rows(self, rows: tuple) -> torch.Tensor:
+        return self._rows(self.lagrange_sum_ext(rows))
 
     def lagrange_evals_host(self, x: int, indices) -> list[int]:
         """l_i(x) for a host point x (verifier side), exact Python ints."""

@@ -133,10 +133,11 @@ def ntt(field: Field, a: torch.Tensor, inverse: bool = False,
     return out
 
 
-def powers(field: Field, base: int, n: int) -> np.ndarray:
-    """Host table [1, b, b², …, b^{n-1}] (Montgomery limbs, numpy)."""
+def powers(field: Field, base: int, n: int, first: int = 1) -> np.ndarray:
+    """Host table [1, b, b², …, b^{n-1}] times `first` (Montgomery limbs,
+    numpy)."""
     p = field.modulus
-    vals = [1] * n
+    vals = [first % p] * n
     for i in range(1, n):
         vals[i] = (vals[i - 1] * base) % p
     return _mont_table(field, vals)
@@ -158,17 +159,23 @@ def powers_device(field: Field, x: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
-def coeff_scale(field: Field, a: torch.Tensor, g: int) -> torch.Tensor:
-    """Scale coefficient i by g^i (used for coset evaluation).
+def coeff_scale(field: Field, a: torch.Tensor, g: int,
+                offset: int = 0) -> torch.Tensor:
+    """Scale coefficient i by g^(offset + i) (used for coset evaluation;
+    `offset`: where a row block of a longer vector starts).
 
-    The table [1, g, ..., g^(n-1)] is built on the host once per (field, g,
-    n, device) and kept: rebuilt on every call (a Python loop of n modular
-    products), it took most of the GPU prover's quotient phase."""
+    The table [g^offset, ..., g^(offset+n-1)] is built on the host once per
+    (field, g, offset, n, device) and kept: rebuilt on every call (a Python
+    loop of n modular products), it took most of the GPU prover's quotient
+    phase."""
     n = a.shape[-1]
     key = ("coset", field.params.name, g, n, str(a.device))
+    if offset:
+        key += (offset,)
     if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = torch.as_tensor(powers(field, g, n),
-                                              device=a.device)
+        _DEVICE_TABLES[key] = torch.as_tensor(
+            powers(field, g, n, pow(g, offset, field.modulus)),
+            device=a.device)
     tbl = _DEVICE_TABLES[key]
     return field.mul(a, tbl.reshape((N_LIMBS,) + (1,) * (a.dim() - 2) + (n,)))
 

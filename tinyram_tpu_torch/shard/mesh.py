@@ -18,15 +18,27 @@ gloo on the CPU and when ranks share one card (NCCL refuses two ranks on
 one GPU).  Gloo takes CUDA tensors in every collective used here (checked
 on an H100 with PyTorch 2.11) and copies them through host memory itself:
 that copy is the transport of ranks that share a card.
+
+Every collective counts what this rank sends to the other ranks into
+`utils.profiling.counters` as "mesh.<kind>" (all_to_all, all_gather,
+permute, broadcast): field elements (a limb tensor's elements over its 16
+limbs; a broadcast's ints), with the seconds it took (the device is
+synchronized before and after it, so they are the collective's own).
+"mesh.unsplit" counts the columns of domain transforms the mesh did not
+split (`poly/domain.py`).  The prover files them per phase.
 """
 
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
+
+from ..field.params import N_LIMBS
+from ..utils.profiling import counters
 
 # `all_gather_into_tensor` under its newer name where the installed
 # PyTorch has it
@@ -86,6 +98,19 @@ class Mesh:
         m = n // self.size
         return x.narrow(axis, self.rank * m, m)
 
+    def _sync(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.time()
+
+    def _count(self, kind: str, elements: int, t0: float) -> None:
+        counters.add(f"mesh.{kind}", elements, self._sync() - t0)
+
+    def count_unsplit(self, x: torch.Tensor) -> None:
+        """Count the columns of a (16, ..., n) transform not split over
+        the mesh."""
+        counters.add("mesh.unsplit", x[0].numel() // x.shape[-1], 0.0)
+
     # -------------------------------------------------------- collectives
 
     def all_to_all(self, x: torch.Tensor, split_axis: int,
@@ -108,7 +133,9 @@ class Mesh:
                              f"{split_axis} of {tuple(x.shape)}")
         send = xs.reshape(D, xs.shape[0] // D, *xs.shape[1:]).contiguous()
         got = torch.empty_like(send)
+        t0 = self._sync()
         dist.all_to_all_single(got, send, group=self.group)
+        self._count("all_to_all", x.numel() // N_LIMBS * (D - 1) // D, t0)
         # got[j]: rank j's chunk, axes as xs's; restore x's axis order
         # behind the rank axis, then put the rank axis before concat_axis
         y = got.movedim(1, split_axis + 1).movedim(0, concat_axis)
@@ -123,7 +150,9 @@ class Mesh:
         send = x.movedim(axis, 0).contiguous()
         got = torch.empty((self.size * send.shape[0],) + send.shape[1:],
                           dtype=send.dtype, device=send.device)
+        t0 = self._sync()
         _all_gather_single(got, send, group=self.group)
+        self._count("all_gather", x.numel() // N_LIMBS * (self.size - 1), t0)
         return got.movedim(0, axis)
 
     def permute(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
@@ -134,9 +163,12 @@ class Mesh:
         send = x.movedim(-1, 0).contiguous()
         w = send.shape[0]
         got = torch.empty_like(send)
+        t0 = self._sync()
         dist.all_to_all_single(
             got, send, [w if j == src else 0 for j in range(D)],
             [w if j == dst else 0 for j in range(D)], group=self.group)
+        self._count("permute",
+                    x.numel() // N_LIMBS if dst != self.rank else 0, t0)
         return got.movedim(0, -1)
 
     def broadcast_ints(self, values: list[int] | None, count: int,
@@ -150,7 +182,10 @@ class Mesh:
         else:
             buf = torch.empty(count * n_bytes, dtype=torch.uint8,
                               device=self.device)
+        t0 = self._sync()
         dist.broadcast(buf, 0, group=self.group)
+        self._count("broadcast",
+                    count * (self.size - 1) if self.rank == 0 else 0, t0)
         raw = bytes(buf.cpu().numpy())
         return [int.from_bytes(raw[i:i + n_bytes], "little")
                 for i in range(0, len(raw), n_bytes)]

@@ -5,7 +5,8 @@ Inputs are replicated on every rank (numpy arrays and Python values, as
 sharded function, and returns numpy arrays or host values.  The timed
 paths return, beside their output, what `measured` saw on this rank: the
 seconds (after the device finished), the kernel launch counts (reset at
-the start of the path) and the peak device memory.  Used by
+the start of the path), the collectives' field elements this rank sent,
+by kind (`shard/mesh.py`), and the peak device memory.  Used by
 `entry.dryrun_multichip`, `shard.scaling`, the tests and `chip_smoke.py`.
 """
 
@@ -20,6 +21,8 @@ import torch
 from .. import kernels
 from ..curve.vesta import PointBatch, to_affine_host
 from ..ipa.srs import CACHE_DIR, setup
+from ..utils.profiling import counters
+from .context import mesh_context
 from .mesh import Mesh
 from .msm import msm_many_sharded, msm_sharded
 from .ntt import _twiddle_block, ntt_sharded
@@ -43,20 +46,34 @@ def _sync(mesh: Mesh) -> None:
         torch.cuda.synchronize(mesh.device)
 
 
+def moved(since: dict) -> dict:
+    """{kind: field elements this rank sent} of each collective kind that
+    moved since the snapshot `since` (`counters.snapshot("mesh.")`);
+    "unsplit": the columns of transforms the mesh did not split."""
+    out = {}
+    for key, (ops, _) in counters.snapshot("mesh.").items():
+        d = ops - since.get(key, (0, 0.0))[0]
+        if d:
+            out[key[len("mesh."):]] = d
+    return out
+
+
 def measured(mesh: Mesh, fn, *args):
     """(fn(*args), stats): launch counts reset before the call, seconds
-    taken after the device finished, and the peak device memory of the
-    call (0 on the CPU)."""
+    taken after the device finished, the collectives of the call
+    (`moved`) and its peak device memory (0 on the CPU)."""
     _sync(mesh)
     cuda = mesh.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
     kernels.reset_launch_counts()
+    m0 = counters.snapshot("mesh.")
     t0 = time.time()
     out = fn(*args)
     _sync(mesh)
     return out, {"seconds": time.time() - t0,
                  "launches": kernels.launch_counts(),
+                 "collectives": moved(m0),
                  "peak_bytes": torch.cuda.max_memory_allocated(mesh.device)
                  if cuda else 0}
 
@@ -146,32 +163,50 @@ def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
 
 
 def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
-                 cache_dir: str | None = CACHE_DIR) -> dict:
+                 cache_dir: str | None = CACHE_DIR,
+                 log_phases: bool = False) -> dict:
     """BASELINE config `config` (its program, steps and k, W = 24) proved
     by `create_proof(mesh=)` under `SeededRng(seed)`, the SRS from
-    `cache_dir`.  Rank 0 verifies the proof, the last rank checks that
+    `cache_dir` and the key from there when `prove_config` has cached it
+    (else `keygen`).  Rank 0 verifies the proof, the last rank checks that
     answer + 1 is rejected.  Returns the proof bytes, the checks and the
-    stats, with the seconds of the prover's seven phases on this rank."""
-    from ..plonk import create_proof
+    stats, with the seconds of the prover's seven phases on this rank and
+    the collectives of each ("phase_collectives").  `log_phases` prints
+    each phase as this rank ends it."""
+    import os
+
+    from ..plonk import create_proof, load_pk
     from ..tinyram.circuit import TinyRamCircuit
     from ..tinyram.emulator import eval_program
-    from ..tinyram.prove_config import CONFIGS, REG_COUNT, WORD_BITS
-    from ..utils.profiling import counters
+    from ..tinyram.prove_config import CONFIGS, REG_COUNT, WORD_BITS, key_path
 
     program, steps_log2, k = CONFIGS[config]
     prog = program(1 << steps_log2, word_bits=WORD_BITS)
     trace = eval_program(prog, WORD_BITS, REG_COUNT)
     circ = TinyRamCircuit(WORD_BITS, REG_COUNT, k=k)
     srs = setup(circ.k, mesh.device, cache_dir=cache_dir)
-    pk = circ.keygen(srs)
+    path = None if cache_dir is None else key_path(cache_dir, config,
+                                                   WORD_BITS, circ.k)
+    pk = load_pk(path, circ.tcs.cs, mesh.device) \
+        if path is not None and os.path.exists(path) else circ.keygen(srs)
     asg = circ.assignment(trace, mesh.device)
     counters.ops.clear()
     counters.seconds.clear()
+
+    def hook(name, seconds, launches):
+        peak = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
+                if mesh.device.type == "cuda" else 0.0)
+        print(f"[rank {mesh.rank}] {name}: {seconds:.3f}s, {launches} "
+              f"launches, peak so far {peak:.3f} GiB", flush=True)
+
     proof, stats = measured(mesh, lambda: create_proof(
-        srs, pk, asg, rng=SeededRng(seed), mesh=mesh))
+        srs, pk, asg, rng=SeededRng(seed), mesh=mesh,
+        phase_hook=hook if log_phases else None))
+    rep = counters.report()
     stats["phases"] = {name[len("prover."):]: v["seconds"]
-                       for name, v in counters.report().items()
-                       if name.startswith("prover.")}
+                       for name, v in rep.items()
+                       if name.startswith("prover.") and "/" not in name}
+    stats["phase_collectives"] = _phase_collectives(rep)
     out = {"proof": proof, "stats": stats, "verified": None, "rejected": None,
            "k": circ.k}
     if mesh.rank == 0:
@@ -180,6 +215,75 @@ def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
         out["rejected"] = not circ.verify(srs, pk, prog, trace.answer + 1,
                                           proof)
     return out
+
+
+def _phase_collectives(rep: dict) -> dict:
+    """{phase: {kind: {"elements", "seconds"}}} of a prover's
+    "prover.<phase>/<kind>" counters (`counters.report()`)."""
+    out: dict = {}
+    for name, v in rep.items():
+        if name.startswith("prover.") and "/" in name:
+            phase, kind = name[len("prover."):].split("/")
+            out.setdefault(phase, {})[kind] = {"elements": v["ops"],
+                                               "seconds": v["seconds"]}
+    return out
+
+
+def extended_rows_path(mesh: Mesh, coeffs: np.ndarray, k: int,
+                       extended_k: int) -> dict:
+    """`Domain(Fp, k, extended_k)`'s `coeff_to_extended_rows` of the
+    coefficients `coeffs` (16, ..., len <= 2^k) under the mesh, then
+    `extended_rows_to_coeff` of that block: this rank's block, the whole
+    coefficients back, and the collectives of each."""
+    from ..field.field import FP
+    from ..poly.domain import Domain
+
+    dom = Domain(FP, k, extended_k, mesh.device)
+    a = _tensor(mesh, coeffs)
+    with mesh_context(mesh):
+        block, lift = measured(mesh, dom.coeff_to_extended_rows, a)
+        back, inv = measured(mesh, dom.extended_rows_to_coeff, block)
+    return {"block": block.cpu().numpy(), "back": back.cpu().numpy(),
+            "lift": lift["collectives"], "inverse": inv["collectives"]}
+
+
+def quotient_path(mesh: Mesh, cs, k: int, coeffs: dict, challenges: tuple,
+                  u: int, ext_chunk: int, gate_slab: int) -> dict:
+    """`plonk.prover.quotient_coeff` of the constraint system `cs` on a
+    `Domain(Fp, k, k + cs.extension_factor_log2())`, from coefficient
+    columns `coeffs` (pid -> (16, 2^k) limbs, whole on every rank) under
+    the mesh: the quotient's coefficients, the collectives of the fold and
+    of what follows it, and the row counts of every lifted block and of
+    the folded one."""
+    from ..field.field import FP
+    from ..plonk.prover import quotient_coeff
+    from ..poly.domain import Domain
+
+    dom = Domain(FP, k, k + cs.extension_factor_log2(), mesh.device)
+    coeff = {pid: _tensor(mesh, c) for pid, c in coeffs.items()}
+    seen = {"lifted": set()}
+    lift = dom.coeff_to_extended_rows
+
+    def lift_seen(a):
+        out = lift(a)
+        seen["lifted"].add(out.shape[-1])
+        return out
+
+    dom.coeff_to_extended_rows = lift_seen
+    with mesh_context(mesh):
+        m0 = counters.snapshot("mesh.")
+
+        def on_folded(acc):
+            seen["fold"] = moved(m0)
+            seen["folded"] = acc.shape[-1]
+            seen["m1"] = counters.snapshot("mesh.")
+
+        q = quotient_coeff(cs, dom, coeff, challenges, u,
+                           cs.permutation_columns(), ext_chunk, gate_slab,
+                           on_folded=on_folded)
+    return {"q": q.cpu().numpy(), "fold": seen["fold"],
+            "after": moved(seen["m1"]), "lifted": sorted(seen["lifted"]),
+            "folded": seen["folded"]}
 
 
 def raise_on_rank(mesh: Mesh, rank: int) -> None:

@@ -3,10 +3,12 @@
 The JAX package row-shards the elementwise phases under GSPMD, which
 inserts a collective-permute for every `jnp.roll` (Rotation::next) whose
 rows cross a device boundary.  Here each rank holds a block of rows, and
-`rolled` builds its block of a rolled column with a halo exchange: the
-rows past the block come from the neighbouring rank (`Mesh.permute`).
-`gate_eval_sharded` is the dry run's row-sharded gate, x·(next(x) + x)
-(`__graft_entry__.py:128-140`).
+`rolled` builds its block of a rolled column, or of a (16, B, m) stack of
+columns, with a halo exchange: the rows past the block come from the
+neighbouring rank (`Mesh.permute`).  The prover's quotient phase rolls
+its extended column blocks this way (`plonk/prover.py` `_Roll`, shifts of
+rotation × n_ext/n rows).  `gate_eval_sharded` is the dry run's
+row-sharded gate, x·(next(x) + x) (`__graft_entry__.py:128-140`).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ def rolled(mesh: Mesh, x: torch.Tensor, shift: int) -> torch.Tensor:
     """This rank's block of `roll(X, -shift)` along the last (row) axis,
     where X is the whole column and `x` this rank's block of it (the last
     rank's next rows are rank 0's first, as roll wraps).  |shift| is at
-    most the block's length."""
+    most the block's length (raises otherwise); leading axes are kept."""
     m = x.shape[-1]
     if not -m <= shift <= m:
         raise ValueError(f"rotation {shift} past a block of {m} rows")

@@ -52,6 +52,12 @@ K = 17  # a 2^16-step trace and its memory log fit 2^17 rows
 CONFIGS = {2: (config2_program, 12, None), 3: (config3_program, 16, K)}
 
 
+def key_path(cache_dir: str, config: int, word_bits: int, k: int) -> str:
+    """Where `prove_config` caches the key of a configuration."""
+    return os.path.join(cache_dir,
+                        f"pk_config{config}_w{word_bits}_r{REG_COUNT}_k{k}.npz")
+
+
 def trace_mismatch(a: Trace, b: Trace) -> list[str]:
     """The fields in which two traces differ (empty: equal)."""
     bad = [name for name in ("word_bits", "reg_count", "answer",
@@ -151,9 +157,8 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
 
     if prove:
         srs = stage("srs setup", lambda: setup(circ.k, dev, cache_dir=cache_dir))
-        pk_path = None if cache_dir is None else os.path.join(
-            cache_dir,
-            f"pk_config{config}_w{word_bits}_r{REG_COUNT}_k{circ.k}.npz")
+        pk_path = None if cache_dir is None else key_path(
+            cache_dir, config, word_bits, circ.k)
         if pk_path is not None and os.path.exists(pk_path):
             pk = stage("key load", lambda: load_pk(pk_path, cs, dev))
         else:

@@ -7,7 +7,9 @@ names for MockProver errors).  Here:
     wall-clock accounting, so prover phases show up both in profiler
     traces (`torch.profiler.profile`) and in the in-process counters.
   * `KernelCounters` accumulates per-kernel op counts and elapsed time and
-    reports ops/s — the per-kernel reporting BASELINE.md asks for.
+    reports ops/s — the per-kernel reporting BASELINE.md asks for.  The
+    mesh's collectives count here too ("mesh.<kind>": the field elements a
+    rank sent, `shard/mesh.py`), and the prover files them per phase.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ class KernelCounters:
             }
             for name in sorted(self.ops)
         }
+
+    def snapshot(self, prefix: str) -> dict:
+        """{name: (ops, seconds)} of the counters whose name starts with
+        `prefix` (a later snapshot minus this one is what ran between)."""
+        return {name: (n, self.seconds[name]) for name, n in self.ops.items()
+                if name.startswith(prefix)}
 
 
 counters = KernelCounters()
