@@ -89,12 +89,13 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     made to raise, the sharded NTT of a (16, 2^20) column at D = 2 and 4,
     the sharded MSM over 2^18 generators at D = 2, config 2 proved by
     `create_proof(mesh=)` at D = 2 and at D = 4 (the bytes of phase 4's
-    proof on every rank; the quotient phase row-sharded: no all-gather
-    while the constraints fold, every transform split), and the scaling
-    report at D = 1, 2, 4.  Each path's counts are reset in every rank
-    before it, summed over the ranks, and must show its kernels; each
-    proof's rank prints its seven phase seconds, its peak and the
-    collectives of its quotient phases.
+    proof on every rank; every coefficient column a row block: each
+    phase's all-gather exactly `shard.paths.gather_pattern`'s, none while
+    the constraints fold, every transform split), and the scaling report
+    at D = 1, 2, 4.  Each path's counts are reset in every rank before it,
+    summed over the ranks, and must show its kernels; each proof's rank
+    prints its seven phase seconds, its peak, the peak at each phase's end
+    and the collectives of every phase.
 16. The digit-matmul NTT (M1) and the batched-affine MSM (A1, A2), with
     the counts reset before each path (`mxu_affine_phase`): M1 against its
     plain version on a seeded sample of 64 columns at every stage shape of
@@ -1269,15 +1270,17 @@ def _summed(stats) -> dict:
     return dict(out)
 
 
-QUOTIENT_PHASES = ("constraint ext eval", "quotient+commit")
-
-
 def _check_sharded_proof(d: int, proofs: list, proof2: bytes, counts: dict,
-                         out: dict) -> list:
+                         out: dict, pattern: dict) -> list:
     """(d) of `shard_phase` for the D = d ranks' `paths.config_proof`
     results: the checks, the launches summed over the ranks into
     `counts`, and per rank (returned and printed) its prove and phase
-    seconds, peak GiB and the collectives of the quotient phases."""
+    seconds, its peak GiB and the peak at the end of each phase, and the
+    collectives of every phase.  Each phase's all-gather must be exactly
+    `pattern` (`paths.gather_pattern`): the coefficient stacks stay row
+    blocks."""
+    from tinyram_tpu_torch.shard.paths import gathered_by_phase
+
     name = f"shard config 2 proof D={d}"
     stats = [p["stats"] for p in proofs]
     counts[name] = _summed(stats)
@@ -1289,18 +1292,22 @@ def _check_sharded_proof(d: int, proofs: list, proof2: bytes, counts: dict,
         f"on every rank {same_ranks}, equal to phase 4's proof "
         f"{same_single}, verify {proofs[0]['verified']}, answer+1 rejected "
         f"{proofs[-1]['rejected']}; launches summed over the ranks "
-        f"{counts[name]}")
+        f"{counts[name]}; all-gather elements a rank per phase expected "
+        f"{pattern}")
     per_rank = []
     for r, st in enumerate(stats):
-        coll = {ph: st["phase_collectives"].get(ph, {})
-                for ph in QUOTIENT_PHASES}
+        coll = st["phase_collectives"]
         per_rank.append({"prove_s": st["seconds"], "phases": st["phases"],
                          "peak_gib": round(st["peak_bytes"] / 2**30, 3),
-                         "collectives": coll})
+                         "phase_peak_gib": st["phase_peak_gib"],
+                         "collectives": coll,
+                         "all_gather": st["collectives"].get("all_gather", 0)})
         log(f"[shard] config 2 D={d} rank {r}: prove {st['seconds']:.3f}s, "
             f"peak {st['peak_bytes'] / 2**30:.3f} GiB, phases "
             f"{ {k: round(v, 3) for k, v in st['phases'].items()} }, "
-            f"quotient collectives {coll}")
+            f"peak GiB at each phase's end "
+            f"{ {k: round(v, 3) for k, v in st['phase_peak_gib'].items()} }, "
+            f"collectives {coll}")
     if not (same_ranks and same_single and proofs[0]["verified"]
             and proofs[-1]["rejected"]):
         raise AssertionError(f"{name}: failed its checks")
@@ -1308,11 +1315,14 @@ def _check_sharded_proof(d: int, proofs: list, proof2: bytes, counts: dict,
     if missing:
         raise AssertionError(f"{name}: never launched {missing}")
     for r, pr in enumerate(per_rank):
-        fold, after = (pr["collectives"][ph] for ph in QUOTIENT_PHASES)
-        if "all_gather" in fold or "unsplit" in fold or "unsplit" in after \
-                or "all_gather" not in after:
-            raise AssertionError(f"{name} rank {r}: the quotient phase is "
-                                 f"not row-sharded: {pr['collectives']}")
+        coll = pr["collectives"]
+        got = gathered_by_phase(stats[r])
+        if got != pattern or pr["all_gather"] != sum(pattern.values()) \
+                or any("unsplit" in c for c in coll.values()):
+            raise AssertionError(f"{name} rank {r}: a coefficient stack was "
+                                 f"gathered: all-gather a phase {got}, "
+                                 f"{pr['all_gather']} in all, expected "
+                                 f"{pattern}")
     return per_rank
 
 
@@ -1328,9 +1338,11 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
     config 2 proved by `create_proof(mesh=)` at D = 2 and at D = 4 under
     the seeded stream of phase 4: equal bytes on every rank and equal to
     phase 4's proof, accepted by `verify_proof`, rejected for answer + 1;
-    the quotient phase runs on row blocks, so on every rank "constraint
-    ext eval" sends no all-gather and no transform goes unsplit, and
-    "quotient+commit" gathers; (e) `scaling_report` at D = 1, 2, 4 (NTT
+    every coefficient column stays as the rank's row block, so on every
+    rank each phase's all-gather is exactly `paths.gather_pattern`'s (the
+    commitments' MSM partials, none in "constraint ext eval", the
+    quotient's coefficients, one sum a slot, the opened polynomial) and no
+    transform goes unsplit; (e) `scaling_report` at D = 1, 2, 4 (NTT
     2^20, MSM 2^18).  Each path's launch counts are reset in every rank
     before it and summed over the ranks: B2 and B1 must launch in (b),
     every MSM kernel in (c), and B1, B3s, B4, B4s, B5, B5l and B6h in (d).
@@ -1345,6 +1357,7 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
     from tinyram_tpu_torch.poly import ntt
     from tinyram_tpu_torch.shard import RankError, paths, run_on_mesh
     from tinyram_tpu_torch.shard.scaling import scaling_report
+    from tinyram_tpu_torch.tinyram import TinyRamCircuit
 
     t_phase = time.time()
     out = {"seconds": {}, "peak_gib": {}}
@@ -1429,9 +1442,11 @@ def shard_phase(dev, report, proof2: bytes) -> dict:
         raise AssertionError(f"{name}: never launched {missing}")
 
     out["config 2"] = {}
+    circ2 = TinyRamCircuit(24, 8)  # config 2's, as `config_proof` builds it
     for d, i in ((2, 3), (4, 2)):
         out["config 2"][d] = _check_sharded_proof(
-            d, [r[i] for r in runs[d]], proof2, counts, out)
+            d, [r[i] for r in runs[d]], proof2, counts, out,
+            paths.gather_pattern(circ2.tcs.cs, circ2.k, d))
 
     # (e) the scaling report on one card
     rep = timed("scaling report", lambda: scaling_report(

@@ -27,6 +27,10 @@ last rank reject answer + 1.  Writes chiprun_out/config3_mesh_report.json
 (per rank: prove and phase seconds, peak, launches, the collectives of
 each phase) and prints it as the last line; a run that fails or passes
 its deadline is recorded there with the ranks' errors, and exits 1.
+Every rank's all-gather a prover phase must be `shard.paths.gather_pattern`'s
+(the coefficient stacks stay row blocks); the report has the peak at the
+end of each phase.  D = 2 and D = 4 run on the one card of a one-card
+machine.
 """
 
 import cProfile
@@ -51,7 +55,9 @@ def mesh_main(n_devices: int, seed: int) -> int:
 
     from tinyram_tpu_torch.probes import nvidia_smi
     from tinyram_tpu_torch.shard import RankError, paths, run_on_mesh
-    from tinyram_tpu_torch.tinyram.prove_config import prove_config
+    from tinyram_tpu_torch.tinyram.circuit import TinyRamCircuit
+    from tinyram_tpu_torch.tinyram.prove_config import (REG_COUNT, WORD_BITS,
+                                                        prove_config)
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -76,19 +82,27 @@ def mesh_main(n_devices: int, seed: int) -> int:
     report["mesh_s"] = time.time() - t0
     if ranks is not None:
         report["ranks"] = [{k: r["stats"][k] for k in (
-            "seconds", "phases", "phase_collectives", "collectives",
-            "launches")} | {"peak_gib": r["stats"]["peak_bytes"] / 2**30}
-            for r in ranks]
+            "seconds", "phases", "phase_collectives", "phase_peak_gib",
+            "collectives", "launches")}
+            | {"peak_gib": r["stats"]["peak_bytes"] / 2**30} for r in ranks]
         report["equal_on_every_rank"] = len({r["proof"] for r in ranks}) == 1
         report["equal_to_single"] = ranks[0]["proof"] == proof
         report["verified"] = ranks[0]["verified"]
         report["rejected"] = ranks[-1]["rejected"]
+        circ = TinyRamCircuit(WORD_BITS, REG_COUNT, k=ranks[0]["k"])
+        pattern = paths.gather_pattern(circ.tcs.cs, circ.k, n_devices)
+        report["gather_pattern"] = pattern
+        report["gather_pattern_held"] = all(
+            paths.gathered_by_phase(r["stats"]) == pattern
+            and r["stats"]["collectives"].get("all_gather", 0)
+            == sum(pattern.values()) for r in ranks)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "config3_mesh_report.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(json.dumps(report), flush=True)
     ok = ranks is not None and all(report[k] for k in (
-        "equal_on_every_rank", "equal_to_single", "verified", "rejected"))
+        "equal_on_every_rank", "equal_to_single", "verified", "rejected",
+        "gather_pattern_held"))
     return 0 if ok else 1
 
 

@@ -9,7 +9,9 @@ then runs `shard.paths.config_proof` on D ranks (`run_on_mesh`: every rank
 on the card(s) as `rank_devices` maps them) under `SeededRng(seed)`, and
 prints one JSON line: the card, the checkout, whether the ranks' bytes are
 equal, verified and answer + 1 rejected, and per rank its prove seconds,
-the seconds of the prover's seven phases and its peak GiB.  --root DIR
+the seconds of the prover's seven phases, its peak GiB, the peak at the
+end of each phase and the field elements each collective kind sent in
+each phase (where the checkout records them).  --root DIR
 runs the `tinyram_tpu_torch` of another checkout (a parent commit), so two
 commits can be compared in one call: parent, change, change, parent.
 """
@@ -48,7 +50,12 @@ def main() -> int:
         "verified": ranks[0]["verified"], "rejected": ranks[-1]["rejected"],
         "ranks": [{"prove_s": r["stats"]["seconds"],
                    "phases": r["stats"]["phases"],
-                   "peak_gib": r["stats"]["peak_bytes"] / 2**30}
+                   "peak_gib": r["stats"]["peak_bytes"] / 2**30,
+                   "phase_peak_gib": r["stats"].get("phase_peak_gib"),
+                   "phase_collectives": {
+                       ph: {kind: v["elements"] for kind, v in c.items()}
+                       for ph, c in r["stats"].get(
+                           "phase_collectives", {}).items()}}
                   for r in ranks]}), flush=True)
     return 0
 

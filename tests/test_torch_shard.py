@@ -13,21 +13,33 @@ each, a deadline of its own) once per D and runs every sharded path there
   * the unsharded gate x·(next(x) + x) and `np.roll`, for the halo
     exchange (rotations forward, backward and by a whole block, on one
     column and on a (16, B, m) stack);
-  * the single-device `Domain` for the row-block transforms
-    (`coeff_to_extended_rows` is the rank's block of `coeff_to_extended`,
-    `extended_rows_to_coeff` gives the whole coefficients back), at a size
-    the mesh splits and at one it does not;
+  * the single-device `Domain` for the row-block transforms, each fed
+    with the rank's row block: `lagrange_to_coeff_rows` is the rank's
+    block of `lagrange_to_coeff` and `coeff_to_lagrange_rows` takes it
+    back, at a size the mesh splits and at one it does not;
+    `coeff_to_extended_rows` is the rank's block of `coeff_to_extended`
+    (split, unsplit, padded to n_ext = 4n with the pad folded into the
+    first all-to-all, and blocks shorter than a row, lifted whole as an
+    unsplit lift), and `extended_rows_to_coeff` gives the whole
+    coefficients back;
+  * `commit_many` of row blocks against the single-device `commit_many`
+    and the JAX package's host `msm` (affine, blinds and a padded second
+    pass included), and
+    `eval_poly_rows` of row blocks against `eval_poly` and the JAX
+    `eval_poly`, each with its collectives (the MSM partials; one sum);
   * the single-device `quotient_coeff` of a constraint system built here
     (a gate with rotations -1, 0, +1, a plookup, a LogUp range lookup of
     two batches, a copy constraint; random coefficient columns at k = 5),
-    with the collectives of its fold (no gather, every extended block
-    n_ext/D rows) and of its end (the quotient's coefficients, gathered).
+    fed with row blocks, with the collectives of its fold (no gather,
+    every extended block n_ext/D rows) and of its end (the quotient's
+    coefficients, gathered).
 Inputs come from `np.random.default_rng(seed)`; tolerance 0 everywhere.
 The launcher must raise within its deadline when a rank raises or runs
 past it.
 """
 
 import functools
+import importlib
 import time
 
 import numpy as np
@@ -37,16 +49,18 @@ import torch
 import jax.numpy as jnp
 
 from tinyram_tpu.curve import host as jhost
+from tinyram_tpu.field import FP as JFP
 from tinyram_tpu.shard import make_mesh as jmake_mesh
 from tinyram_tpu.shard import ntt_sharded as jntt_sharded
 from tinyram_tpu.shard.ntt import _twiddle_matrix
 from tinyram_tpu_torch.curve.vesta import from_affine_host
 from tinyram_tpu_torch.field import FP
-from tinyram_tpu_torch.ipa.srs import _hash_to_curve
+from tinyram_tpu_torch.ipa.ipa import commit_many
+from tinyram_tpu_torch.ipa.srs import _hash_to_curve, setup
 from tinyram_tpu_torch.plonk.circuit import ConstraintSystem
 from tinyram_tpu_torch.plonk.prover import quotient_coeff
 from tinyram_tpu_torch.poly.domain import Domain
-from tinyram_tpu_torch.poly.ntt import ntt
+from tinyram_tpu_torch.poly.ntt import eval_poly, ntt
 from tinyram_tpu_torch.shard import (Mesh, RankError, backend_for,
                                      rank_devices, run_on_mesh)
 from tinyram_tpu_torch.shard import paths
@@ -54,6 +68,8 @@ from tinyram_tpu_torch.shard.ntt import _split_rc
 from tinyram_tpu_torch.shard.rows import gate_eval, rolled
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
+
+jntt = importlib.import_module("tinyram_tpu.poly.ntt")  # the package exports ntt()
 
 DEADLINE_S = 300.0  # every mesh run here ends well inside it
 LOG_NS = (6, 8)
@@ -66,6 +82,10 @@ SHIFTS = (-3, -1, 2, 32)  # rotations of the halo exchange (32: a whole block)
 STACK_SHIFTS = (-4, 4)  # on a (16, 3, m) stack: rotation ±1 at scale 4
 Q_K = 5  # the quotient's constraint system: n = 32, n_ext = 128
 Q_EXT_CHUNK, Q_GATE_SLAB = 3, 2  # several lifts and gate slabs at this size
+ROWS_CASES = ("split", "unsplit", "padded", "short")
+COMMIT_COLS, COMMIT_CHUNK = 5, 4  # two MSM passes, the second padded to 4
+COMMIT_BLINDS = [0, 7, 0, 1 << 200, 3]
+EVAL_LOG = 7
 
 
 def _limbs(rng, shape):
@@ -146,13 +166,16 @@ def _quotient_want():
         Q_GATE_SLAB).numpy()
 
 
-def _rows_case(D, split):
-    """(k, extended k) of the row-block transforms: (7, 7) splits at D = 2
-    and 4, and its coefficients fill every rank's block; (1, 1) at D = 2
-    and (3, 3) at D = 4 leave C = 1 or 2 (`_split_rc`) not divisible by D."""
-    if split:
-        return 7, 7
-    return (1, 1) if D == 2 else (3, 3)
+def _rows_case(D, case):
+    """(k, extended k) of the row-block transforms: "split", (7, 7), splits
+    at D = 2 and 4; "unsplit", (1, 1) at D = 2 and (3, 3) at D = 4, leaves
+    C = 1 or 2 (`_split_rc`) not divisible by D; "padded", (5, 7), lifts
+    blocks of whole rows of the (16, 8) split into n_ext = 4n, the zero
+    pad folded into the first all-to-all; "short", (3, 7), has blocks of
+    4 or 2 coefficients, shorter than a row of 8, which are gathered and
+    lifted whole, as an unsplit lift."""
+    return {"split": (7, 7), "padded": (5, 7), "short": (3, 7),
+            "unsplit": (1, 1) if D == 2 else (3, 3)}[case]
 
 
 def _inputs(D):
@@ -168,12 +191,15 @@ def _inputs(D):
     sc_many = _limbs(rng, (B, 8 * D))
     gate = _limbs(rng, (32 * D,))
     stack = _limbs(rng, (3, 32 * D))
-    rows = {split: _limbs(rng, (2, 1 << _rows_case(D, split)[0]))
-            for split in (True, False)}
+    rows = {case: _limbs(rng, (2, 1 << _rows_case(D, case)[0]))
+            for case in ROWS_CASES}
+    commit = _limbs(rng, (COMMIT_COLS, 1 << Q_K))
+    ev = _limbs(rng, (3, 1 << EVAL_LOG))
+    x = _limbs(rng, ())
     cs, q_cols, q_ch = _quotient_inputs()
     return dict(a2a=a2a, cols=cols, batch=batch, pts=pts, pb=pb, sc=sc,
-                sc_many=sc_many, gate=gate, stack=stack, rows=rows, cs=cs,
-                q_cols=q_cols, q_ch=q_ch)
+                sc_many=sc_many, gate=gate, stack=stack, rows=rows,
+                commit=commit, ev=ev, x=x, cs=cs, q_cols=q_cols, q_ch=q_ch)
 
 
 def _calls(inp):
@@ -190,8 +216,14 @@ def _calls(inp):
     calls += [(paths.roll_path, (inp["gate"], s)) for s in SHIFTS]
     calls += [(paths.roll_path, (inp["stack"], s)) for s in STACK_SHIFTS]
     D = inp["stack"].shape[-1] // 32
-    calls += [(paths.extended_rows_path, (inp["rows"][split],)
-               + _rows_case(D, split)) for split in (True, False)]
+    calls += [(paths.extended_rows_path, (inp["rows"][case],)
+               + _rows_case(D, case)) for case in ROWS_CASES]
+    calls += [(paths.rows_transform_path, (inp["rows"][case],
+                                           _rows_case(D, case)[0]))
+              for case in ("split", "unsplit")]
+    calls += [(paths.commit_rows_path, (inp["commit"], Q_K, COMMIT_BLINDS,
+                                        COMMIT_CHUNK)),
+              (paths.eval_rows_path, (inp["ev"], inp["x"]))]
     cs = inp["cs"]
     calls += [(paths.quotient_path, (cs, Q_K, inp["q_cols"], inp["q_ch"],
                                      cs.usable_rows(1 << Q_K), Q_EXT_CHUNK,
@@ -212,7 +244,8 @@ def mesh_run(request):
     names += ["ntt_batch", "msm", "msm_many", "gate"]
     names += [f"roll{s}" for s in SHIFTS]
     names += [f"stack_roll{s}" for s in STACK_SHIFTS]
-    names += ["rows_split", "rows_unsplit", "quotient"]
+    names += [f"rows_{case}" for case in ROWS_CASES]
+    names += ["l2c_split", "l2c_unsplit", "commit", "eval", "quotient"]
     assert len(names) == len(ranks[0])
     return D, inp, {name: [r[i] for r in ranks] for i, name in enumerate(names)}
 
@@ -336,34 +369,39 @@ def test_rolled_raises_past_a_block():
             rolled(mesh, x, shift)
 
 
-@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
-def test_coeff_to_extended_rows_is_the_ranks_block(mesh_run, split):
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_coeff_to_extended_rows_is_the_ranks_block(mesh_run, case):
     """Each rank's block of the single-device coset evaluations, n_ext/D
-    rows of each column; a split lift moves only all-to-alls, an unsplit
-    one is counted (its two columns) and moves nothing."""
+    rows of each column, from the rank's n/D coefficients.  A split lift
+    moves only all-to-alls: three of (D-1)/D of n_ext/D a column, or, with
+    the pad folded in, the first of (D-1)/D of n/D.  An unsplit lift, and
+    one of blocks shorter than a row, is counted (its two columns) and
+    gathers the coefficients."""
     D, inp, res = mesh_run
-    k, ext_k = _rows_case(D, split)
-    a = inp["rows"][split]
+    k, ext_k = _rows_case(D, case)
+    a = inp["rows"][case]
     whole = Domain(FP, k, ext_k, "cpu").coeff_to_extended(
         torch.as_tensor(a)).numpy()
-    m = (1 << ext_k) // D
-    for r, got in enumerate(res[f"rows_{'' if split else 'un'}split"]):
+    n, m = 1 << k, (1 << ext_k) // D
+    gathered = 2 * (n // D) * (D - 1)
+    want = {"split": {"all_to_all": 2 * 3 * (D - 1) * m // D},
+            "padded": {"all_to_all": 2 * (D - 1) * (n // D + 2 * m) // D},
+            "short": {"unsplit": 2, "all_gather": gathered},
+            "unsplit": {"unsplit": 2, "all_gather": gathered}}[case]
+    for r, got in enumerate(res[f"rows_{case}"]):
         assert got["block"].shape == (16, 2, m)
         np.testing.assert_array_equal(got["block"],
                                       whole[..., r * m:(r + 1) * m])
-        if split:
-            assert set(got["lift"]) == {"all_to_all"}
-        else:
-            assert got["lift"] == {"unsplit": 2}
+        assert got["lift"] == want
 
 
-@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
-def test_extended_rows_to_coeff_gathers_the_coefficients(mesh_run, split):
+@pytest.mark.parametrize("case", ROWS_CASES)
+def test_extended_rows_to_coeff_gathers_the_coefficients(mesh_run, case):
     """The blocks give the whole coefficients (zero-padded to n_ext) back
     on every rank, with one gather of (D-1)/D of each column."""
     D, inp, res = mesh_run
-    k, ext_k = _rows_case(D, split)
-    a = inp["rows"][split]
+    k, ext_k = _rows_case(D, case)
+    a = inp["rows"][case]
     n_ext = 1 << ext_k
     want = np.zeros((16, 2, n_ext), dtype=np.int32)
     want[..., :a.shape[-1]] = a
@@ -371,14 +409,98 @@ def test_extended_rows_to_coeff_gathers_the_coefficients(mesh_run, split):
     np.testing.assert_array_equal(
         dom.extended_to_coeff(dom.coeff_to_extended(torch.as_tensor(a))),
         want)
-    for got in res[f"rows_{'' if split else 'un'}split"]:
+    for got in res[f"rows_{case}"]:
         np.testing.assert_array_equal(got["back"], want)
         assert got["inverse"]["all_gather"] == 2 * n_ext // D * (D - 1)
 
 
+@pytest.mark.parametrize("split", [True, False], ids=["split", "unsplit"])
+def test_lagrange_to_coeff_rows_is_the_ranks_block(mesh_run, split):
+    """From the rank's block of two Lagrange columns, the rank's block of
+    the single-device coefficients, and `coeff_to_lagrange_rows` takes it
+    back to the rank's block of the columns.  A split mesh moves only
+    all-to-alls; an unsplit one gathers the block (counted)."""
+    D, inp, res = mesh_run
+    case = "split" if split else "unsplit"
+    k = _rows_case(D, case)[0]
+    a = inp["rows"][case]
+    whole = Domain(FP, k, k, "cpu").lagrange_to_coeff(
+        torch.as_tensor(a)).numpy()
+    m = (1 << k) // D
+    for r, got in enumerate(res[f"l2c_{case}"]):
+        np.testing.assert_array_equal(got["coeff"],
+                                      whole[..., r * m:(r + 1) * m])
+        np.testing.assert_array_equal(got["back"],
+                                      a[..., r * m:(r + 1) * m])
+        for kind in ("l2c", "c2l"):
+            if split:
+                assert set(got[kind]) == {"all_to_all"}
+            else:
+                assert got[kind] == {"unsplit": 2,
+                                     "all_gather": 2 * m * (D - 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _commit_want(coeffs_bytes):
+    coeffs = np.frombuffer(coeffs_bytes, dtype=np.int32).reshape(
+        16, COMMIT_COLS, 1 << Q_K).copy()
+    srs = setup(Q_K, "cpu", cache_dir=None)
+    t = torch.as_tensor(coeffs)
+    return commit_many(srs, [t[:, i] for i in range(COMMIT_COLS)],
+                       blinds=COMMIT_BLINDS, commit_chunk=COMMIT_CHUNK)
+
+
+@functools.lru_cache(maxsize=None)
+def _commit_host(coeffs_bytes):
+    """Σ_i c_i·G_i + blind·W of each column by the JAX package's host
+    oracle, from the canonical values of the Montgomery limbs."""
+    coeffs = np.frombuffer(coeffs_bytes, dtype=np.int32).reshape(
+        16, COMMIT_COLS, 1 << Q_K).copy()
+    srs = setup(Q_K, "cpu", cache_dir=None)
+    plain = FP.from_mont(torch.as_tensor(coeffs)).numpy()
+    out = []
+    for i, blind in enumerate(COMMIT_BLINDS):
+        c = jhost.msm(_ints(plain[:, i]), srs.g_host)
+        out.append(jhost.add(c, jhost.scalar_mul(blind, srs.w_host))
+                   if blind else c)
+    return out
+
+
+def test_commit_many_rows_equals_single_device(mesh_run):
+    """Row blocks committed against the rank's block of the generators
+    give the single-device commitments (affine, blinded) on every rank,
+    which are the JAX host oracle's; the only collective is the MSM
+    partials' gather, three coordinates of each of the 4 + 4 columns of
+    the two passes."""
+    D, inp, res = mesh_run
+    want = _commit_want(inp["commit"].tobytes())
+    assert len(want) == COMMIT_COLS and None not in want
+    assert want == _commit_host(inp["commit"].tobytes())
+    for got in res["commit"]:
+        assert got["commitments"] == want
+        assert got["collectives"] == {"all_gather": 3 * 8 * (D - 1)}
+
+
+def test_eval_poly_rows_equals_eval_poly_and_jax(mesh_run):
+    """The sum over ranks of the blocks' partials is `eval_poly` of the
+    whole columns, which is the JAX `eval_poly` of the same limbs; one
+    gather of D partials, a field element a column."""
+    D, inp, res = mesh_run
+    a, x = inp["ev"], inp["x"]
+    want = eval_poly(FP, torch.as_tensor(a), torch.as_tensor(x)).numpy()
+    want_jax = np.asarray(jntt.eval_poly(
+        JFP, jnp.asarray(a.astype(np.uint32)),
+        jnp.asarray(x.astype(np.uint32)))).astype(np.int64)
+    np.testing.assert_array_equal(want.astype(np.int64), want_jax)
+    for got in res["eval"]:
+        np.testing.assert_array_equal(got["values"], want)
+        assert got["collectives"] == {"all_gather": 3 * (D - 1)}
+
+
 def test_quotient_coeff_equals_single_device(mesh_run):
-    """Every rank's `quotient_coeff` equals the single-device one bit for
-    bit (the same columns, challenges and chunking)."""
+    """Every rank's `quotient_coeff`, fed with its row blocks of the
+    columns, equals the single-device one bit for bit (the same columns,
+    challenges and chunking)."""
     _, _, res = mesh_run
     want = _quotient_want()
     assert want.shape == (16, 4 << Q_K) and want.any()

@@ -6,7 +6,9 @@ ranks under the seeded stream of tests/data/torch_golden_toy6.npz (made
 by scripts/torch_golden_toy.py from the JAX package).  Rank 0 draws and
 broadcasts the blinds, so both ranks return the JAX package's bytes; the
 port's single-device verifier accepts the proof and rejects it against a
-changed public input.  Tolerance 0.  The ranks run under the dry run's
+changed public input.  Tolerance 0.  Every coefficient column stays as
+the rank's row block: per phase, each rank gathers only what
+`shard.paths.gather_pattern` reckons.  The ranks run under the dry run's
 deadline.
 """
 
@@ -17,6 +19,8 @@ import pytest
 import torch
 
 from tinyram_tpu_torch.entry import dryrun_multichip
+from tinyram_tpu_torch.plonk.toy import K, toy_circuit
+from tinyram_tpu_torch.shard import paths
 
 torch.set_num_threads(1)  # test workers share the cores: more threads oversubscribe them
 
@@ -57,3 +61,24 @@ def test_single_device_verifier_accepts(run):
 
 def test_rejected_against_a_changed_public_input(run):
     assert run[0]["rejected"] is True
+
+
+def test_phase_collectives_hold_the_row_block_pattern(run):
+    """Per prover phase and rank, the all-gathers are exactly what
+    `paths.gather_pattern` reckons from the toy's constraint system: the
+    commitments' MSM partials and nothing of the coefficient stacks in the
+    first three phases, nothing in the fold, one sum a slot in the
+    evaluations, and one gather of the opened polynomial in the multiopen.
+    No transform goes unsplit, and the whole proof gathers no more than the
+    phases do (the instance and advice transforms run before the first
+    phase's clock)."""
+    res, _ = run
+    toy = toy_circuit()
+    want = paths.gather_pattern(toy.cs, K, 2)
+    assert want["commit instance+advice"] == 3 * 4
+    for st in (s["proof"] for s in res["stats"]):
+        assert set(st["phases"]) == set(want)
+        assert paths.gathered_by_phase(st) == want
+        assert not any("unsplit" in c for c in st["phase_collectives"].values())
+        assert st["collectives"]["all_gather"] == sum(want.values())
+        assert set(st["phase_peak_gib"]) == set(want)

@@ -15,9 +15,14 @@ with the folded G are one batched MSM over the original G with
 gathered, masked scalars.  Randomness comes from `rng.randbelow`.
 
 The prover's MSMs (each round's pair and `commit_many`'s passes) go
-through `_msm_dispatch`: under a mesh context whose size divides the
-point count, the point-sharded MSM of `shard/msm.py` over this rank's
-block of scalars and generators.
+through `_msm_dispatch`: under a mesh context, the point-sharded MSM of
+`shard/msm.py` over this rank's block of scalars and generators.  The
+scalars come in one of two forms, named by the caller and never guessed
+from a shape: whole vectors, cut to the rank's block there (the opening
+rounds), or `rows=True`, this rank's row block of each vector already
+(`commit`/`commit_many`, whose entries under a mesh are the prover's
+coefficient blocks), as the JAX `msm_many_sharded` takes the
+block-sharded output of `ntt_sharded` (`tinyram_tpu/shard/msm.py:41-47`).
 """
 
 from __future__ import annotations
@@ -40,25 +45,30 @@ P = FP.modulus
 COMMIT_CHUNK = 64  # columns per batched MSM pass (reference default)
 
 
-def _msm_dispatch(scalars_plain: torch.Tensor, points: PointBatch) -> PointBatch:
+def _msm_dispatch(scalars_plain: torch.Tensor, points: PointBatch,
+                  rows: bool = False) -> PointBatch:
     """`msm_many` of (16, B, N) scalars with the bucket scan of the active
-    context (`utils/algorithms.py`), or, when a mesh context is active and
-    its size divides N, the point-sharded `msm_many_sharded` of this
-    rank's block."""
+    context (`utils/algorithms.py`), or, when a mesh context is active, the
+    point-sharded `msm_many_sharded` of this rank's block: of the whole
+    scalars when their N divides over the mesh, or, with `rows`, the
+    scalars as given, which are this rank's block of N·D already."""
     from ..shard.context import current_mesh
 
     mesh = current_mesh()
-    if mesh is not None and scalars_plain.shape[-1] % mesh.size == 0:
+    if mesh is not None and (rows or scalars_plain.shape[-1] % mesh.size == 0):
         from ..shard.msm import msm_many_sharded
 
-        return msm_many_sharded(mesh, mesh.block(scalars_plain),
+        if not rows:
+            scalars_plain = mesh.block(scalars_plain)
+        return msm_many_sharded(mesh, scalars_plain,
                                 PointBatch(*(mesh.block(c) for c in points)))
     return msm_many(scalars_plain, points, affine=msm_affine())
 
 
 def commit(srs: SRS, coeffs: torch.Tensor, blind: int = 0,
            commit_chunk: int = COMMIT_CHUNK) -> AffinePoint:
-    """Commit to a (16, m) Montgomery coefficient vector, m <= 2^k;
+    """Commit to a (16, m) Montgomery coefficient vector, m <= 2^k (this
+    rank's row block under a mesh context, as in `commit_many`);
     ``blind`` adds blind·W (0 for public polynomials)."""
     return commit_many(srs, [coeffs], blinds=[blind],
                        commit_chunk=commit_chunk)[0]
@@ -214,32 +224,57 @@ def verify_open(srs: SRS, tr: TranscriptReader, commitment: AffinePoint,
     return check_deferred(srs, g_scalars, terms)
 
 
+def pass_widths(cols: int, commit_chunk: int = COMMIT_CHUNK) -> list[int]:
+    """The column counts of `commit_many`'s MSM passes over `cols` vectors:
+    `commit_chunk` at most each, padded to a power of two (at least 4)."""
+    widths = []
+    for lo in range(0, cols, commit_chunk):
+        target = 4
+        while target < min(commit_chunk, cols - lo):
+            target *= 2
+        widths.append(target)
+    return widths
+
+
 def commit_many(srs: SRS, coeff_list, blinds=None,
                 commit_chunk: int = COMMIT_CHUNK) -> list[AffinePoint]:
     """Commit to many (16, m) Montgomery coefficient vectors in batched
-    MSM passes of at most `commit_chunk` columns, each padded to a power
-    of two (at least 4); ``blinds[i]`` adds blind·W to commitment i."""
+    MSM passes (`pass_widths`); ``blinds[i]`` adds blind·W to commitment i.
+
+    Under a mesh context each entry is this rank's row block (16, 2^k/D)
+    of a vector of 2^k coefficients, committed against this rank's block
+    of the generators with no gather.  The vector's length is the global
+    one, D times the block's, and must be the SRS's: a shorter vector's
+    zero pad would move rows between the ranks' blocks.  With no mesh, a
+    vector shorter than the SRS is padded with zeros."""
+    from ..shard.context import current_mesh
+
     if not coeff_list:
         return []
     n = srs.n
+    mesh = current_mesh()
     padded = []
     for c in coeff_list:
         m = c.shape[-1]
-        assert m <= n
-        if m < n:
-            c = torch.cat([c, FP.zeros((n - m,), c.device)], dim=-1)
+        if mesh is not None:
+            if m * mesh.size != n:
+                raise ValueError(f"commit_many: blocks of {m} on {mesh.size} "
+                                 f"ranks are not vectors of {n}")
+        else:
+            assert m <= n
+            if m < n:
+                c = torch.cat([c, FP.zeros((n - m,), c.device)], dim=-1)
         padded.append(c)
     out = []
-    for lo in range(0, len(padded), commit_chunk):
+    for lo, target in zip(range(0, len(padded), commit_chunk),
+                          pass_widths(len(padded), commit_chunk)):
         chunk = padded[lo : lo + commit_chunk]
-        target = 4
-        while target < len(chunk):
-            target *= 2
         pad_cols = target - len(chunk)
         if pad_cols:
             chunk = chunk + [chunk[0]] * pad_cols
-        stack = torch.stack(chunk, dim=1)  # (16, B, n)
-        res = to_affine_host(_msm_dispatch(FP.from_mont(stack), srs.g))
+        stack = torch.stack(chunk, dim=1)  # (16, B, n or n/D)
+        res = to_affine_host(_msm_dispatch(FP.from_mont(stack), srs.g,
+                                           rows=True))
         out.extend(res[: len(res) - pad_cols] if pad_cols else res)
     if blinds is not None:
         out = [

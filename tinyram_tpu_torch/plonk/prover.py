@@ -3,16 +3,22 @@
 Port of `tinyram_tpu/plonk/prover.py`, with its mesh branch: with
 `mesh=`, every rank of the mesh runs this same prover under the mesh
 context, so the domain transforms become the all-to-all sharded NTT and
-the commit and IPA MSMs point-sharded partials (`shard/`).  The quotient
-phase (`quotient_coeff`) runs on row blocks, as GSPMD keeps the JAX
-prover's (`tinyram_tpu/plonk/prover.py:577-592`): each rank lifts and
-holds its n_ext/D rows of every extended column, rotations are halo
-exchanges, and only the quotient's coefficients are gathered.  The other
-phases gather every transform's output and hold whole columns.  Same
-protocol, same transcript traffic, same order of random draws: the only
-randomness is `rng.randbelow` (the `secrets` module by default), so a
-seeded `rng` reproduces the reference's proof bytes under the same seeded
-`secrets.randbelow`.  Under a mesh, rank 0 draws from `rng` and
+the commit and IPA MSMs point-sharded partials (`shard/`).  Every
+coefficient column stays as the rank's row block (n/D rows) from the
+transform that makes it to its last use, as the JAX prover's
+`ntt_sharded` outputs stay block-sharded (`tinyram_tpu/shard/ntt.py:
+118-122`): the commitments take the blocks against the rank's block of
+the generators, the quotient phase (`quotient_coeff`) lifts them to its
+n_ext/D rows of every extended column (rotations by halo exchange), the
+evaluations sum the blocks' partials over the ranks.  What stays whole on
+every rank is what the JAX layout has whole: the Lagrange columns (the
+assignment, the compressed lookups, the grand products, the quotient's
+chunks), what goes to the host or the transcript, the quotient's
+coefficients (one gather) and the one polynomial the IPA opens (one
+gather).  Same protocol, same transcript traffic, same order of random
+draws: the only randomness is `rng.randbelow` (the `secrets` module by
+default), so a seeded `rng` reproduces the reference's proof bytes under
+the same seeded `secrets.randbelow`.  Under a mesh, rank 0 draws from `rng` and
 broadcasts each batch (`shard.mesh.MeshRng`), so every rank returns the
 single-device bytes.
 
@@ -45,7 +51,7 @@ from ..field.field import FP
 from ..field.params import limb_array_to_ints, limbs_to_int
 from ..ipa import SRS
 from ..ipa.ipa import COMMIT_CHUNK, commit, commit_many, open_poly
-from ..poly.ntt import _mont_table, eval_poly, tree_sum
+from ..poly.ntt import _mont_table, eval_poly_rows, tree_sum
 from ..transcript import TranscriptWriter
 from ..utils.algorithms import algorithms
 from ..utils.profiling import counters
@@ -204,9 +210,13 @@ def _lift_chunked(dom, stack: torch.Tensor, ext_chunk: int) -> torch.Tensor:
 
 
 def _l2c_chunked(dom, cols: list, ext_chunk: int) -> torch.Tensor:
-    """Batched lagrange->coeff over a column list, `ext_chunk` per call."""
+    """Batched lagrange->coeff over a list of whole Lagrange columns,
+    `ext_chunk` per call: this rank's row block (16, B, n/D) of their
+    coefficients under a mesh (`Domain.lagrange_to_coeff_rows` of the
+    rank's block of each column, no gather), the whole without."""
     parts = [
-        dom.lagrange_to_coeff(torch.stack(cols[lo : lo + ext_chunk], dim=1))
+        dom.lagrange_to_coeff_rows(torch.stack(
+            [dom.block(c) for c in cols[lo : lo + ext_chunk]], dim=1))
         for lo in range(0, len(cols), ext_chunk)
     ]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
@@ -366,8 +376,9 @@ def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
                    perm_cols: list, ext_chunk: int = EXT_CHUNK,
                    gate_slab: int = GATE_SLAB, on_folded=None) -> torch.Tensor:
     """Phase 5 of `create_proof`: the quotient's coefficients (16, n_ext),
-    whole on every rank, from the coefficient columns `coeff` (pid ->
-    (16, n)) and the challenges (θ, β, γ, y).
+    whole on every rank, from the coefficient columns `coeff` (pid -> this
+    rank's row block (16, n/D) under a mesh context, the whole (16, n)
+    without) and the challenges (θ, β, γ, y).
 
     Constraint blocks (gate slabs, the permutation, each lookup, each LogUp
     argument) take their columns in the coefficient domain and lift them to
@@ -583,7 +594,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     asg.finalize()
     tw = tw or TranscriptWriter()
 
-    def cm(cols, blinds):
+    def cm(cols, blinds):  # coefficient row blocks (whole with no mesh)
         return commit_many(srs, cols, blinds=blinds, commit_chunk=commit_chunk)
 
     def const(v: int) -> torch.Tensor:
@@ -622,13 +633,17 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         blinds[pid] = rng.randbelow(P)
         return blinds[pid]
 
+    # every entry of `coeff` is this rank's row block (16, n/D) under a
+    # mesh (the key's whole columns cut here, no collective), the whole
+    # column with none; `lag` holds whole Lagrange columns
     for i in range(cs.num_fixed):
         lag[("fixed", i)] = pk.fixed_lag[i]
-        coeff[("fixed", i)] = pk.fixed_coeff[i]
+        coeff[("fixed", i)] = dom.block(pk.fixed_coeff[i])
     for j in range(len(pk.sigma_lag)):
         lag[("sigma", j)] = pk.sigma_lag[j]
-        coeff[("sigma", j)] = pk.sigma_coeff[j]
-    coeff_stack = _l2c_chunked(dom, instance + advice, ext_chunk)  # (16, B, n)
+        coeff[("sigma", j)] = dom.block(pk.sigma_coeff[j])
+    # (16, B, n/D) under a mesh
+    coeff_stack = _l2c_chunked(dom, instance + advice, ext_chunk)
     for i in range(cs.num_instance):
         lag[("instance", i)] = instance[i]
         coeff[("instance", i)] = coeff_stack[:, i]
@@ -770,7 +785,8 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
                 m_lag[:, u:] = FP.encode(_rand_tail(n - u), device=dev)
             m_lags.append(m_lag)
             range_data.append((in_stack, t_lag, m_lag))
-        m_coeff = dom.lagrange_to_coeff(torch.stack(m_lags, dim=1))
+        m_coeff = dom.lagrange_to_coeff_rows(
+            dom.block(torch.stack(m_lags, dim=1)))
         m_comms = cm(
             [m_coeff[:, i] for i in range(m_coeff.shape[1])],
             [_blind(("rm", ri)) for ri in range(len(cs.range_lookups))],
@@ -808,7 +824,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         if bf > 0:
             zperm[:, u + 1 :] = FP.encode(_rand_tail(n - u - 1), device=dev)
         lag[("zperm",)] = zperm
-        coeff[("zperm",)] = dom.lagrange_to_coeff(zperm)
+        coeff[("zperm",)] = dom.lagrange_to_coeff_rows(dom.block(zperm))
         tw.write_point(commit(srs, coeff[("zperm",)], blind=_blind(("zperm",)),
                               commit_chunk=commit_chunk))
 
@@ -830,7 +846,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             zs[:, :, u + 1 :] = FP.encode(
                 _rand_tail(B * (n - u - 1)), device=dev
             ).reshape(16, B, n - u - 1)
-        z_coeff = dom.lagrange_to_coeff(zs)
+        z_coeff = dom.lagrange_to_coeff_rows(dom.block(zs))
         z_comms = cm(
             [z_coeff[:, i] for i in range(z_coeff.shape[1])],
             [_blind(("lz", i)) for i in range(z_coeff.shape[1])],
@@ -900,8 +916,11 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         gate_slab, on_folded=lambda _: phases.end("constraint ext eval"))
     n_ext = dom.n_ext
     n_chunks = n_ext // n
-    q_chunks = q_coeff_full.reshape(16, n_chunks, n)
-    q_lag = dom.coeff_to_lagrange(q_chunks)
+    q_whole = q_coeff_full.reshape(16, n_chunks, n)
+    # the chunks' Lagrange columns, whole as every Lagrange column, from
+    # the whole coefficients every rank holds (no collective)
+    q_lag = dom.coeff_to_lagrange(q_whole)
+    q_chunks = dom.block(q_whole)
     q_comms = cm(
         [q_chunks[:, c] for c in range(n_chunks)],
         [_blind(("q", c)) for c in range(n_chunks)],
@@ -931,7 +950,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         for lo in range(0, len(group), EVAL_SLAB):
             chunk = group[lo : lo + EVAL_SLAB]
             stack_c = torch.stack([coeff[s.pid] for s in chunk], dim=1)
-            vals = FP.decode(eval_poly(FP, stack_c, zd))
+            vals = FP.decode(eval_poly_rows(FP, stack_c, zd))
             for s, val in zip(chunk, vals):
                 evals[(s.pid, s.rotation)] = val
     for slot in slots:
@@ -948,6 +967,12 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
 
 def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
                     blinds=None, rng=secrets, commit_chunk=COMMIT_CHUNK):
+    """Phase 7: the BDFG batch opening and its one IPA.  `coeff` holds
+    this rank's row blocks under a mesh context (`create_proof`), `lag`
+    whole Lagrange columns: each point's P is folded on both (its
+    coefficients a row block), Q's coefficients are the row block of the
+    whole Q on H, its commitment and the w values come from the blocks,
+    and the opened T = Q + Σ s^j·P_j is gathered once for `open_poly`."""
     blinds = blinds or {}
     dev = dom.device
     n = dom.n
@@ -997,15 +1022,16 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
         q_lag_total = term if q_lag_total is None else FP.add(q_lag_total, term)
         uj = uj * u % P
 
-    q_coeff = dom.lagrange_to_coeff(q_lag_total)
+    q_coeff = dom.lagrange_to_coeff_rows(dom.block(q_lag_total))
     q_blind = rng.randbelow(P)
-    tw.write_point(commit(srs, q_coeff, blind=q_blind, commit_chunk=commit_chunk))
+    tw.write_point(commit(srs, q_coeff, blind=q_blind,
+                          commit_chunk=commit_chunk))
     zstar = tw.challenge()
     zd = FP.encode([zstar], device=dev)[:, 0]
 
     w_vals = []
     for rot, p_lag, p_coeff, r_val, _ in p_group:
-        wv = FP.decode(eval_poly(FP, p_coeff, zd)[:, None])[0]
+        wv = FP.decode(eval_poly_rows(FP, p_coeff, zd)[:, None])[0]
         w_vals.append(wv)
         tw.write_scalar(wv)
 
@@ -1018,4 +1044,6 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
         t_blind = (t_blind + sj * p_blind) % P
         sj = sj * s_ch % P
 
-    open_poly(srs, tw, t_coeff, zstar, blind=t_blind, rng=rng)
+    # the one polynomial the IPA opens, gathered (the JAX `jnp.take` of the
+    # fold, which GSPMD gathers)
+    open_poly(srs, tw, dom.gather(t_coeff), zstar, blind=t_blind, rng=rng)

@@ -1,19 +1,22 @@
 """Evaluation domains for the PLONKish prover.
 
-Port of `tinyram_tpu/poly/domain.py`, with its mesh branch: under a mesh
-context (`shard/context.py`) a transform whose four-step split the mesh
-divides runs as the all-to-all sharded NTT on this rank's block of its
-input.  The whole-column transforms (`lagrange_to_coeff`,
-`coeff_to_extended`, ...) gather its output.  The row-block ones, which
-the prover's quotient phase runs, do not: `coeff_to_extended_rows` returns
-this rank's n_ext/D rows of the coset evaluations, and
+Port of `tinyram_tpu/poly/domain.py`, with its mesh branch.  The
+whole-column transforms (`lagrange_to_coeff`, `coeff_to_extended`, ...)
+run on one device, mesh or not.  The row-block ones, which the prover
+runs for every coefficient column under a mesh context
+(`shard/context.py`), run as the all-to-all sharded NTT when the mesh
+divides the transform's four-step split: `lagrange_to_coeff_rows`,
+`coeff_to_lagrange_rows` and `coeff_to_extended_rows` take this rank's
+row block and return this rank's row block (n/D or n_ext/D rows), and
 `extended_rows_to_coeff` gathers only the coefficients it returns.  So a
-rank holds its block of every extended column, as the JAX package's
-shard_map out_specs leave it under GSPMD (`tinyram_tpu/plonk/prover.py:
-577-592`).  The extended tables have block forms (`*_rows`) cut from the
-cached whole tables.  With its `domain_cache`: one `Domain` per (field, k,
-extended k, device), so keygen, the key loader and the verifier share one
-domain and its cached tables.
+rank holds its block of every coefficient and extended column, as the JAX
+package's shard_map out_specs leave it under GSPMD (`tinyram_tpu/shard/
+ntt.py:118-122`, `tinyram_tpu/plonk/prover.py:577-592`).  `block` and
+`gather` move a column between the two forms.  The extended tables have
+block forms (`*_rows`) cut from the cached whole tables.  With its
+`domain_cache`: one `Domain` per (field, k, extended k, device), so
+keygen, the key loader and the verifier share one domain and its cached
+tables.
 
 A `Domain` owns the size-n subgroup H (circuit rows) and the extended coset
 g·H_ext used for quotient evaluation.  The coset generator is the field's
@@ -68,28 +71,12 @@ class Domain:
         D = mesh.size
         return self.field.params.name == "Fp" and R % D == 0 and C % D == 0
 
-    def _ntt(self, a: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """`_ntt_local`, or, under a mesh context whose size divides the
-        four-step split, the all-to-all sharded NTT of this rank's block,
-        gathered."""
-        from ..shard.context import current_mesh
-
-        mesh = current_mesh()
-        if mesh is not None:
-            if self._splits(mesh, a.shape[-1]):
-                from ..shard.ntt import ntt_sharded
-
-                out = ntt_sharded(mesh, mesh.block(a), inverse, self.field)
-                return mesh.all_gather(out, -1)
-            mesh.count_unsplit(a)
-        return self._ntt_local(a, inverse)
-
     def lagrange_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on H (natural ω^i order) -> coefficients."""
-        return self._ntt(a, True)
+        return self._ntt_local(a, True)
 
     def coeff_to_lagrange(self, a: torch.Tensor) -> torch.Tensor:
-        return self._ntt(a, False)
+        return self._ntt_local(a, False)
 
     def _pad_ext(self, a: torch.Tensor) -> torch.Tensor:
         pad = self.n_ext - a.shape[-1]
@@ -102,42 +89,88 @@ class Domain:
     def coeff_to_extended(self, a: torch.Tensor) -> torch.Tensor:
         """Coefficients (len n or less) -> evaluations on the coset g·H_ext."""
         a = coeff_scale(self.field, self._pad_ext(a), self.g_coset)
-        return self._ntt(a, False)
+        return self._ntt_local(a, False)
 
     def extended_to_coeff(self, a: torch.Tensor) -> torch.Tensor:
         """Evaluations on g·H_ext -> coefficients (length n_ext)."""
-        a = self._ntt(a, True)
+        a = self._ntt_local(a, True)
         return coeff_scale(self.field, a, self.g_coset_inv)
 
-    def coeff_to_extended_rows(self, a: torch.Tensor) -> torch.Tensor:
-        """Coefficients (16, ..., len n or less), whole on every rank ->
-        this rank's row block (16, ..., n_ext/D) of their evaluations on
-        g·H_ext: the sharded NTT's output as it is, no gather.  A mesh
-        that does not split the transform gets the block of the whole
-        one, counted in "mesh.unsplit".  With no mesh, `coeff_to_extended`
-        (the whole column)."""
+    def block(self, a: torch.Tensor) -> torch.Tensor:
+        """This rank's row block of a whole column (16, ..., n) along its
+        last axis under a mesh context (a view, no collective); `a` itself
+        with no mesh."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        return a if mesh is None else mesh.block(a)
+
+    def gather(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole column from every rank's row block along the last axis
+        (one `all_gather`) under a mesh context; `block` itself with no
+        mesh."""
+        from ..shard.context import current_mesh
+
+        mesh = current_mesh()
+        return block if mesh is None else mesh.all_gather(block, -1)
+
+    def _ntt_rows(self, block: torch.Tensor, inverse: bool) -> torch.Tensor:
+        """This rank's row block of the size-n transform from its row block
+        of the input, no gather.  A mesh that does not split the transform
+        gathers the input, transforms it whole and takes the block (counted
+        in "mesh.unsplit"); with no mesh, the whole transform."""
         from ..shard.context import current_mesh
 
         mesh = current_mesh()
         if mesh is None:
-            return self.coeff_to_extended(a)
-        if not self._splits(mesh, self.n_ext):
-            mesh.count_unsplit(a)
-            return mesh.block(self._ntt_local(coeff_scale(
-                self.field, self._pad_ext(a), self.g_coset), False)).contiguous()
+            return self._ntt_local(block, inverse)
+        if not self._splits(mesh, block.shape[-1] * mesh.size):
+            mesh.count_unsplit(block)
+            whole = mesh.all_gather(block, -1)
+            return mesh.block(self._ntt_local(whole, inverse)).contiguous()
         from ..shard.ntt import ntt_sharded
 
-        # this rank's block of the scaled, zero-padded coefficients
-        m = self.n_ext // mesh.size
-        lo = mesh.rank * m
-        body = a[..., lo:lo + m]
-        if body.shape[-1]:
-            body = coeff_scale(self.field, body, self.g_coset, offset=lo)
-        pad = m - body.shape[-1]
-        if pad:
-            body = torch.cat([body, self.field.zeros(
-                a.shape[1:-1] + (pad,), a.device)], dim=-1)
-        return ntt_sharded(mesh, body, False, self.field)
+        return ntt_sharded(mesh, block, inverse, self.field)
+
+    def lagrange_to_coeff_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's row block (16, ..., n/D) of evaluations on H ->
+        this rank's row block of the coefficients (the whole of both with
+        no mesh)."""
+        return self._ntt_rows(block, True)
+
+    def coeff_to_lagrange_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's row block (16, ..., n/D) of coefficients -> this
+        rank's row block of the evaluations on H."""
+        return self._ntt_rows(block, False)
+
+    def coeff_to_extended_rows(self, block: torch.Tensor) -> torch.Tensor:
+        """This rank's row block (16, ..., n/D) of coefficients -> this
+        rank's row block (16, ..., n_ext/D) of their evaluations on g·H_ext:
+        the sharded NTT's output as it is, no gather.  The zero pad to
+        n_ext is folded into the transform's first all-to-all
+        (`ntt_sharded(n=n_ext)`): each rank scales its block by g^i from
+        its first row, and the blocks are exchanged as they are, so a lift
+        sends (D−1)/D of n/D elements a column there instead of (D−1)/D of
+        n_ext/D.  A mesh that does not split the transform, or whose
+        blocks are not whole rows of its (R, C) split, gathers the block
+        and lifts the whole column (counted in "mesh.unsplit").  With no
+        mesh, `coeff_to_extended` (the whole column)."""
+        from ..shard.context import current_mesh
+        from ..shard.ntt import _split_rc
+
+        mesh = current_mesh()
+        if mesh is None:
+            return self.coeff_to_extended(block)
+        if not self._splits(mesh, self.n_ext) \
+                or block.shape[-1] % _split_rc(self.extended_k)[1]:
+            mesh.count_unsplit(block)
+            whole = mesh.all_gather(block, -1)
+            return mesh.block(self.coeff_to_extended(whole)).contiguous()
+        from ..shard.ntt import ntt_sharded
+
+        body = coeff_scale(self.field, block, self.g_coset,
+                           offset=mesh.rank * block.shape[-1])
+        return ntt_sharded(mesh, body, False, self.field, n=self.n_ext)
 
     def extended_rows_to_coeff(self, block: torch.Tensor) -> torch.Tensor:
         """This rank's row block of evaluations on g·H_ext -> the whole

@@ -180,14 +180,33 @@ def coeff_scale(field: Field, a: torch.Tensor, g: int,
     return field.mul(a, tbl.reshape((N_LIMBS,) + (1,) * (a.dim() - 2) + (n,)))
 
 
-def eval_poly(field: Field, coeffs: torch.Tensor, x: torch.Tensor):
-    """Evaluate (16, ..., n) coefficient vectors at device scalar x (16,)."""
+def eval_poly(field: Field, coeffs: torch.Tensor, x: torch.Tensor,
+              offset: int = 0):
+    """Evaluate (16, ..., n) coefficient vectors at device scalar x (16,).
+    `offset`: the vectors are the coefficients offset … offset + n − 1 of
+    longer ones (a row block), so the result is Σ_i c_i x^(offset + i)."""
     n = coeffs.shape[-1]
     m = 1 << (n - 1).bit_length() if n > 1 else 1
     pw = powers_device(field, x, max(m, 1))[:, :n]
+    if offset:
+        pw = field.mul(pw, field.pow_const(x, offset)[:, None])
     pw = pw.reshape((coeffs.shape[0],) + (1,) * (coeffs.dim() - 2) + (n,))
     prods = field.mul(coeffs, pw)
     return tree_sum(field, prods)
+
+
+def eval_poly_rows(field: Field, block: torch.Tensor, x: torch.Tensor):
+    """`eval_poly` of whole coefficient vectors from this rank's row block
+    (16, ..., n/D) of them under a mesh context: the block's partial sum
+    x^(r·n/D)·Σ_i c_i x^i, then the sum over ranks (`Mesh.field_sum`), the
+    same value on every rank.  With no mesh, `eval_poly` of the whole."""
+    from ..shard.context import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        return eval_poly(field, block, x)
+    part = eval_poly(field, block, x, offset=mesh.rank * block.shape[-1])
+    return mesh.field_sum(part, field)
 
 
 def tree_sum(field: Field, a: torch.Tensor, axis: int = -1) -> torch.Tensor:

@@ -6,15 +6,18 @@ it at its device phases:
 
   * domain transforms route to the all-to-all four-step NTT (shard/ntt.py)
     on this rank's block (poly/domain.py): the whole-column transforms
-    gather the output, the row-block ones (`coeff_to_extended_rows`) keep
-    it as this rank's block;
+    gather the output (the Lagrange side), the row-block ones (`*_rows`)
+    keep it as this rank's block;
   * commit and IPA MSMs route to point-sharded partials (shard/msm.py;
-    ipa/ipa.py `_msm_dispatch`);
-  * the quotient phase (plonk/prover.py `quotient_coeff`) runs on this
-    rank's row blocks, rotations by halo exchange (shard/rows.py).
+    ipa/ipa.py `_msm_dispatch`), the commits from the rank's row blocks;
+  * every coefficient column of the prover (plonk/prover.py) is this
+    rank's row block, the quotient phase runs on its row blocks of the
+    extended columns (rotations by halo exchange, shard/rows.py), and an
+    evaluation sums the blocks' partials over the ranks (poly/ntt.py
+    `eval_poly_rows`).
 
-Every rank runs the same prover on the same replicated inputs; the other
-elementwise phases run on whole columns on every rank.
+Every rank runs the same prover on the same replicated inputs; the
+Lagrange columns and the host-side work stay whole on every rank.
 """
 
 from __future__ import annotations

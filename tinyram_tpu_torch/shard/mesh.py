@@ -11,6 +11,7 @@ the rank's local block, and the JAX collectives become methods here:
   jax.lax.all_to_all(x, split, concat, tiled=True)  ->  `Mesh.all_to_all`
   jax.lax.all_gather(x)                              ->  `Mesh.all_gather`
   the collective-permute of a rotation (GSPMD)       ->  `Mesh.permute`
+  the sum over the row axis of a sharded reduction   ->  `Mesh.field_sum`
 
 The backend follows the map from ranks to devices and is chosen before
 anything runs (`backend_for`): NCCL when every rank has a card of its own,
@@ -154,6 +155,18 @@ class Mesh:
         _all_gather_single(got, send, group=self.group)
         self._count("all_gather", x.numel() // N_LIMBS * (self.size - 1), t0)
         return got.movedim(0, axis)
+
+    def field_sum(self, x: torch.Tensor, field) -> torch.Tensor:
+        """Σ over ranks of each rank's field partials `x` (16, ...), the
+        same on every rank: an `all_gather` of the D partials (counted as
+        one), added in rank order.  Field addition is exact, so any order
+        gives the same bits; rank order keeps every rank's arithmetic the
+        same."""
+        parts = self.all_gather(x[None], 0)
+        acc = parts[0]
+        for i in range(1, self.size):
+            acc = field.add(acc, parts[i])
+        return acc
 
     def permute(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
         """A collective permute along the last axis: this rank sends `x`

@@ -50,27 +50,42 @@ def _twiddle_block(mesh: Mesh, log_n: int, inverse: bool) -> torch.Tensor:
 
 
 def ntt_sharded(mesh: Mesh, a: torch.Tensor, inverse: bool = False,
-                field: Field = FP) -> torch.Tensor:
+                field: Field = FP, n: int | None = None) -> torch.Tensor:
     """This rank's block of the NTT of a (16, ..., n) array along its last
     axis, from this rank's block `a` (16, ..., n/D) of the input: input and
     output block-sharded on the last axis, leading axes replicated; output
     in natural order (inverse=True includes the 1/n scale).  Needs
-    R % D == 0 and C % D == 0 (`_split_rc`), over Fp."""
+    R % D == 0 and C % D == 0 (`_split_rc`), over Fp.
+
+    `n` (default D times `a`'s length): the size of a transform whose
+    input is the ranks' blocks `a` followed by zeros, as the coset lift
+    pads coefficients to n_ext.  The zero rows of the (R, C) input matrix
+    are not exchanged: the first all-to-all sends the blocks as they are
+    and every rank pads the columns it receives, so the pad costs no
+    collective.  Needs each block to hold whole rows (its length a
+    multiple of C)."""
     if field.params.name != "Fp":
         raise ValueError("ntt_sharded: Fp only (its twiddle table)")
     D = mesh.size
-    n = a.shape[-1] * D
+    n = a.shape[-1] * D if n is None else n
     log_n = n.bit_length() - 1
     if 1 << log_n != n:
         raise ValueError(f"ntt_sharded: size {n} is not a power of two")
     R, C = _split_rc(log_n)
     if R % D or C % D:
         raise ValueError(f"ntt_sharded: mesh {D} must divide {R}x{C}")
+    if a.shape[-1] % C or a.shape[-1] * D > n:
+        raise ValueError(f"ntt_sharded: blocks of {a.shape[-1]} are not "
+                         f"whole rows of {C} within {n}")
     lead = a.shape[:-1]
     ax = len(lead)  # index of the row axis once reshaped to (..., R/D, C)
-    # block sharding of flat j = q·C + s gives each rank R/D complete
-    # q-rows: local (16, ..., R/D, C); gather all q for a local s-chunk
-    a_mat = mesh.all_to_all(a.reshape(*lead, R // D, C), ax + 1, ax)
+    # block sharding of flat j = q·C + s gives each rank complete q-rows:
+    # local (16, ..., rows/D, C); gather all q for a local s-chunk
+    a_mat = mesh.all_to_all(a.reshape(*lead, a.shape[-1] // C, C), ax + 1, ax)
+    if a_mat.shape[-2] < R:  # the zero rows of a padded input
+        a_mat = torch.cat([a_mat, field.zeros(
+            a_mat.shape[1:-2] + (R - a_mat.shape[-2], C // D), a.device)],
+            dim=-2)
     # column NTTs (size R) along q: (16, ..., R, C/D)
     f1 = ntt(field, a_mat.movedim(-2, -1).contiguous(), inverse)
     f1 = f1.movedim(-1, -2)
@@ -84,4 +99,3 @@ def ntt_sharded(mesh: Mesh, a: torch.Tensor, inverse: bool = False,
     f2 = mesh.all_to_all(f2.movedim(-1, -2), ax, ax + 1)
     # (16, ..., C/D, R): local flat t_l·R + u is the natural block
     return f2.reshape(*lead, n // D)
-

@@ -20,6 +20,7 @@ import torch
 
 from .. import kernels
 from ..curve.vesta import PointBatch, to_affine_host
+from ..ipa.ipa import COMMIT_CHUNK, pass_widths
 from ..ipa.srs import CACHE_DIR, setup
 from ..utils.profiling import counters
 from .context import mesh_context
@@ -139,7 +140,8 @@ def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
     `create_proof(mesh=)`, under `SeededRng(seed)` (`secrets` when None).
     Rank 0 runs the single-device `verify_proof` on it, the last rank
     checks that a changed public input is rejected (rank 0 does both on
-    one rank).  Returns the proof bytes, the checks and the stats."""
+    one rank).  Returns the proof bytes, the checks and the stats (with
+    the prover's phases as `config_proof` gives them)."""
     import secrets
 
     from ..plonk import create_proof, keygen, verify_proof
@@ -150,8 +152,8 @@ def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
     pk = keygen(srs, toy.cs, toy.fixed_assignment(mesh.device))
     asg = toy.assignment(device=mesh.device)
     rng = secrets if seed is None else SeededRng(seed)
-    proof, stats = measured(mesh, lambda: create_proof(
-        srs, pk, asg, rng=rng, mesh=mesh))
+    proof, stats = _proof_measured(mesh, lambda hook: create_proof(
+        srs, pk, asg, rng=rng, mesh=mesh, phase_hook=hook))
     good = toy.public_values(toy.witness_values())
     bad = [(good[0] + 1) % P] + good[1:]
     out = {"proof": proof, "stats": stats, "verified": None, "rejected": None}
@@ -170,8 +172,9 @@ def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
     `cache_dir` and the key from there when `prove_config` has cached it
     (else `keygen`).  Rank 0 verifies the proof, the last rank checks that
     answer + 1 is rejected.  Returns the proof bytes, the checks and the
-    stats, with the seconds of the prover's seven phases on this rank and
-    the collectives of each ("phase_collectives").  `log_phases` prints
+    stats, with the seconds of the prover's seven phases on this rank, the
+    collectives of each ("phase_collectives") and the peak device memory
+    so far at the end of each ("phase_peak_gib").  `log_phases` prints
     each phase as this rank ends it."""
     import os
 
@@ -190,23 +193,9 @@ def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
     pk = load_pk(path, circ.tcs.cs, mesh.device) \
         if path is not None and os.path.exists(path) else circ.keygen(srs)
     asg = circ.assignment(trace, mesh.device)
-    counters.ops.clear()
-    counters.seconds.clear()
-
-    def hook(name, seconds, launches):
-        peak = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
-                if mesh.device.type == "cuda" else 0.0)
-        print(f"[rank {mesh.rank}] {name}: {seconds:.3f}s, {launches} "
-              f"launches, peak so far {peak:.3f} GiB", flush=True)
-
-    proof, stats = measured(mesh, lambda: create_proof(
-        srs, pk, asg, rng=SeededRng(seed), mesh=mesh,
-        phase_hook=hook if log_phases else None))
-    rep = counters.report()
-    stats["phases"] = {name[len("prover."):]: v["seconds"]
-                       for name, v in rep.items()
-                       if name.startswith("prover.") and "/" not in name}
-    stats["phase_collectives"] = _phase_collectives(rep)
+    proof, stats = _proof_measured(mesh, lambda hook: create_proof(
+        srs, pk, asg, rng=SeededRng(seed), mesh=mesh, phase_hook=hook),
+        log_phases)
     out = {"proof": proof, "stats": stats, "verified": None, "rejected": None,
            "k": circ.k}
     if mesh.rank == 0:
@@ -215,6 +204,82 @@ def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
         out["rejected"] = not circ.verify(srs, pk, prog, trace.answer + 1,
                                           proof)
     return out
+
+
+def _proof_measured(mesh: Mesh, prove, log_phases: bool = False):
+    """`measured` of `prove(phase_hook)` with the prover's counters
+    cleared first, and in its stats, per prover phase: its seconds
+    ("phases"), its collectives ("phase_collectives") and the peak device
+    memory at its end ("phase_peak_gib", 0 on the CPU)."""
+    counters.ops.clear()
+    counters.seconds.clear()
+    peaks = {}
+
+    def hook(name, seconds, launches):
+        peaks[name] = (torch.cuda.max_memory_allocated(mesh.device) / 2**30
+                       if mesh.device.type == "cuda" else 0.0)
+        if log_phases:
+            print(f"[rank {mesh.rank}] {name}: {seconds:.3f}s, {launches} "
+                  f"launches, peak so far {peaks[name]:.3f} GiB", flush=True)
+
+    proof, stats = measured(mesh, lambda: prove(hook))
+    rep = counters.report()
+    stats["phases"] = {name[len("prover."):]: v["seconds"]
+                       for name, v in rep.items()
+                       if name.startswith("prover.") and "/" not in name}
+    stats["phase_collectives"] = _phase_collectives(rep)
+    stats["phase_peak_gib"] = peaks
+    return proof, stats
+
+
+def gather_pattern(cs, k: int, D: int, commit_chunk: int = COMMIT_CHUNK
+                   ) -> dict:
+    """{prover phase: the field elements a rank sends by `all_gather` in
+    it} of `create_proof(mesh=)` of the constraint system `cs` at 2^k rows
+    on D ranks that split every transform, reckoned from `cs` alone:
+      * every commitment: three coordinates of each MSM column's partial
+        sum (padded columns included) to D − 1 ranks;
+      * "quotient+commit": the quotient's coefficients, (D − 1)·n_ext/D
+        (its chunks' Lagrange form is taken from them on every rank);
+      * "evaluations": one field element a slot (the sum of the partials);
+      * "multiopen+ipa": Q's commitment, a partial a point, the opened
+        polynomial (D − 1)·n/D, and the IPA's pair of MSMs a round.
+    The coefficient stacks themselves are never gathered: "commit
+    instance+advice", "lookup permute+commit" and "grand products" carry
+    only MSM partials, "constraint ext eval" nothing.  The instance and
+    advice transforms run before the first phase's clock (as the JAX
+    prover's), so the whole proof's all-gather is the sum of these."""
+    from ..plonk.protocol import eval_schedule, multiopen_point_order
+
+    n = 1 << k
+    n_chunks = 1 << cs.extension_factor_log2()
+    n_sigma = len(cs.permutation_columns())
+    n_lk, rls = len(cs.lookups), cs.range_lookups
+
+    def msm(*cols):
+        return 3 * (D - 1) * sum(sum(pass_widths(c, commit_chunk))
+                                 for c in cols)
+
+    slots = eval_schedule(cs, n_sigma, n_chunks)
+    return {
+        "commit instance+advice": msm(cs.num_instance + cs.num_advice),
+        "lookup permute+commit": msm(2 * n_lk, len(rls)),
+        "grand products": msm(1 if n_sigma else 0, n_lk,
+                              sum(len(rl.batches()) + 2 for rl in rls)),
+        "constraint ext eval": 0,
+        "quotient+commit": (D - 1) * (n_chunks * n // D) + msm(n_chunks),
+        "evaluations": (D - 1) * len(slots),
+        "multiopen+ipa": msm(1) + (D - 1) * (
+            len(multiopen_point_order(slots)) + n // D + 6 * k),
+    }
+
+
+def gathered_by_phase(stats: dict) -> dict:
+    """{phase: all-gather elements this rank sent in it} of the seven
+    prover phases, from a proof's stats (`config_proof`, `toy_proof`)."""
+    coll = stats["phase_collectives"]
+    return {ph: coll.get(ph, {}).get("all_gather", {}).get("elements", 0)
+            for ph in stats["phases"]}
 
 
 def _phase_collectives(rep: dict) -> dict:
@@ -229,17 +294,34 @@ def _phase_collectives(rep: dict) -> dict:
     return out
 
 
+def rows_transform_path(mesh: Mesh, lag: np.ndarray, k: int) -> dict:
+    """`Domain(Fp, k, k)`'s `lagrange_to_coeff_rows` of this rank's block
+    of the Lagrange columns `lag` (16, ..., 2^k), then
+    `coeff_to_lagrange_rows` of that block: both blocks and the
+    collectives of each."""
+    from ..field.field import FP
+    from ..poly.domain import Domain
+
+    dom = Domain(FP, k, k, mesh.device)
+    a = mesh.block(_tensor(mesh, lag))
+    with mesh_context(mesh):
+        coeff, fwd = measured(mesh, dom.lagrange_to_coeff_rows, a)
+        back, inv = measured(mesh, dom.coeff_to_lagrange_rows, coeff)
+    return {"coeff": coeff.cpu().numpy(), "back": back.cpu().numpy(),
+            "l2c": fwd["collectives"], "c2l": inv["collectives"]}
+
+
 def extended_rows_path(mesh: Mesh, coeffs: np.ndarray, k: int,
                        extended_k: int) -> dict:
-    """`Domain(Fp, k, extended_k)`'s `coeff_to_extended_rows` of the
-    coefficients `coeffs` (16, ..., len <= 2^k) under the mesh, then
-    `extended_rows_to_coeff` of that block: this rank's block, the whole
-    coefficients back, and the collectives of each."""
+    """`Domain(Fp, k, extended_k)`'s `coeff_to_extended_rows` of this
+    rank's row block of the coefficients `coeffs` (16, ..., 2^k) under the
+    mesh, then `extended_rows_to_coeff` of that block: this rank's block,
+    the whole coefficients back, and the collectives of each."""
     from ..field.field import FP
     from ..poly.domain import Domain
 
     dom = Domain(FP, k, extended_k, mesh.device)
-    a = _tensor(mesh, coeffs)
+    a = mesh.block(_tensor(mesh, coeffs))
     with mesh_context(mesh):
         block, lift = measured(mesh, dom.coeff_to_extended_rows, a)
         back, inv = measured(mesh, dom.extended_rows_to_coeff, block)
@@ -247,20 +329,51 @@ def extended_rows_path(mesh: Mesh, coeffs: np.ndarray, k: int,
             "lift": lift["collectives"], "inverse": inv["collectives"]}
 
 
+def commit_rows_path(mesh: Mesh, coeffs: np.ndarray, k: int,
+                     blinds: list, commit_chunk: int) -> dict:
+    """`commit_many` of this rank's row blocks of the B coefficient
+    vectors `coeffs` (16, B, 2^k) against `setup(k)` (hashed here, not
+    cached) under the mesh: the affine commitments and the collectives."""
+    from ..ipa.ipa import commit_many
+
+    srs = setup(k, mesh.device, cache_dir=None)
+    blk = mesh.block(_tensor(mesh, coeffs))
+    with mesh_context(mesh):
+        comms, stats = measured(mesh, lambda: commit_many(
+            srs, [blk[:, i] for i in range(blk.shape[1])], blinds=blinds,
+            commit_chunk=commit_chunk))
+    return {"commitments": comms, "collectives": stats["collectives"]}
+
+
+def eval_rows_path(mesh: Mesh, coeffs: np.ndarray, x: np.ndarray) -> dict:
+    """`eval_poly_rows` of this rank's row block of the coefficients
+    `coeffs` (16, ..., n) at the Montgomery scalar `x` (16,) under the
+    mesh: the values (16, ...) and the collectives."""
+    from ..field.field import FP
+    from ..poly.ntt import eval_poly_rows
+
+    blk = mesh.block(_tensor(mesh, coeffs))
+    with mesh_context(mesh):
+        vals, stats = measured(mesh, eval_poly_rows, FP, blk,
+                               _tensor(mesh, x))
+    return {"values": vals.cpu().numpy(), "collectives": stats["collectives"]}
+
+
 def quotient_path(mesh: Mesh, cs, k: int, coeffs: dict, challenges: tuple,
                   u: int, ext_chunk: int, gate_slab: int) -> dict:
     """`plonk.prover.quotient_coeff` of the constraint system `cs` on a
-    `Domain(Fp, k, k + cs.extension_factor_log2())`, from coefficient
-    columns `coeffs` (pid -> (16, 2^k) limbs, whole on every rank) under
-    the mesh: the quotient's coefficients, the collectives of the fold and
-    of what follows it, and the row counts of every lifted block and of
-    the folded one."""
+    `Domain(Fp, k, k + cs.extension_factor_log2())`, fed with this rank's
+    row block of the coefficient columns `coeffs` (pid -> (16, 2^k) limbs,
+    whole on every rank) under the mesh, as `create_proof` feeds it: the
+    quotient's coefficients, the collectives of the fold and of what
+    follows it, and the row counts of every lifted block and of the folded
+    one."""
     from ..field.field import FP
     from ..plonk.prover import quotient_coeff
     from ..poly.domain import Domain
 
     dom = Domain(FP, k, k + cs.extension_factor_log2(), mesh.device)
-    coeff = {pid: _tensor(mesh, c) for pid, c in coeffs.items()}
+    coeff = {pid: mesh.block(_tensor(mesh, c)) for pid, c in coeffs.items()}
     seen = {"lifted": set()}
     lift = dom.coeff_to_extended_rows
 
