@@ -113,11 +113,30 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     msm_affine=True)`, which must give phase 4's bytes, verify, reject
     answer + 1, launch M1 and A1 and no B2.  The default config-2 proof
     of phase 4 must have launched none of M1, A1, A2.
+17. The proofs of the seven toy-circuit tests of tests/test_plonk.py and
+    tests/test_range_lookup.py (`plonk.toy.prove_toy`, `toy_phase`) under
+    the seeded streams of tests/data/torch_golden_toys.npz: every proof's
+    bytes equal to the JAX package's, every verdict the JAX test asserts
+    (wrong public input, flipped byte, broken mul gate, forged
+    multiplicity commitment: rejected; the out-of-range witness refused
+    with the JAX prover's text; the mixed circuit's mock verdicts).
+18. The window sweep (`tune_msm_window.run(16)`: Pippenger at c = 12..16,
+    each sum equal to the chooser's c's and to the ladder's) and the
+    signed check (`verify_signed_msm.run(16, (16,))`: c = 8 and 13 against
+    the host oracle on 256 points, Pippenger against the ladder on 2^16
+    lanes, the rate at 2^16).
+19. BASELINE config 4's first stage at full size (2^20 steps, W=24, k=21)
+    through `prove_config(4, mock=False, prove=False)`: the traces equal,
+    the witness built on the card with each stage's seconds, peak and held
+    GiB; the witness is freed before the script ends (the mock and the
+    proof run in scripts/torch_prove_config4.py, where they stop).
+    In 17-19 the counts are reset before each path and its kernels must
+    launch.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line
 (each kernel at config 2's shapes, its launches in one config-2 proof and,
 as "launches_config3", in one config-3 proof, and as "launches_paths" in
-each path of 12-16; M1, A1 and A2 at phase 16's shapes, with the launches
+each path of 12-19; M1, A1 and A2 at phase 16's shapes, with the launches
 of the mxu/affine proof (A2: of the bench_msm twin)), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
 the last line; without a CUDA device it exits 1 too.
@@ -445,6 +464,23 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+ONCE_MS = 100.0  # a plain version at least this slow is timed by its check
+
+
+def timed_once(fn):
+    """(fn(), the device ms of that one call between two CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    res = fn()
+    stop.record()
+    sync()
+    return res, start.elapsed_time(stop)
+
+
 def record_row(out, kid, kernel, plain, reps, plain_reps, nbytes, ops,
                elements, plain_ms=None, pick=None, plain_lanes=None,
                tag="kernel"):
@@ -454,20 +490,23 @@ def record_row(out, kid, kernel, plain, reps, plain_reps, nbytes, ops,
     time where it was measured before; pick(got): the kernel's output on
     the `plain_lanes` lanes that a sampled plain() computes.  Kernel ms:
     CUDA graph replays; ms_issued: the same launches issued one by one from
-    Python, which shows where the host held the kernel back."""
+    Python, which shows where the host held the kernel back.  A plain
+    version timed once (plain_reps = 1) that takes ONCE_MS or more is timed
+    by the run that checks the kernel: a warm-up and a second run of the
+    slow ones cost the script minutes."""
     import torch
 
     from tinyram_tpu_torch.probes import device_ms
 
     got = kernel()
-    want = plain()
-    sync()
+    want, once_ms = timed_once(plain)
     err = max_abs_err(got if pick is None else pick(got), want)
     del got, want
     ms = device_ms(kernel, reps)
     ms_issued = device_ms(kernel, reps, graph=False)
     if plain_ms is None:
-        plain_ms = device_ms(plain, plain_reps, graph=False)
+        plain_ms = (once_ms if plain_reps == 1 and once_ms >= ONCE_MS
+                    else device_ms(plain, plain_reps, graph=False))
     b = bound(nbytes, pipe_ms(ops, elements))
     n_imad, n_alu = imad_count(ops) * elements, alu_count(ops) * elements
     out[kid] = {"max_abs_err": err, "ms": ms, "ms_issued": ms_issued,
@@ -676,9 +715,7 @@ def check_kernels(dev, gen, srs, tables) -> dict:
     horner_products = nw * (c_bits * DBL + ADD)
     for n_cols, tag in ((64, ""), (4, "@4")):
         ws = PointBatch(*(c[:, :nw * n_cols].reshape(16, nw, n_cols) for c in p))
-        want = tuple(cp.horner_plain(ws, c_bits))
-        plain_ms = device_ms(lambda: cp.horner_plain(ws, c_bits), 1,
-                             graph=False)
+        want, plain_ms = timed_once(lambda: tuple(cp.horner_plain(ws, c_bits)))
         for group, kid in ((4, "B6h" + tag), (1, "B6h G=1" + tag)):
             record(kid, lambda: tuple(cp.pdouble_horner(ws, c_bits, group)),
                    lambda: want, 3, 1, pt * nw * n_cols + pt * n_cols,
@@ -1814,6 +1851,150 @@ def mxu_affine_phase(dev, report, tables, proof2: bytes, launches2: dict):
     return out, paths
 
 
+# launched by the seven toy proofs (every MSM there is at most 2^6 lanes:
+# the ladder, whose lanes B4 sums in a tree at its end; no B2: every
+# toy transform, at most 2^8 points, is below `poly.ntt.NTT_KERNEL_MIN` =
+# 512 and takes the plain radix-2 path on the card too), by the window
+# sweep and signed check at 2^16 (Pippenger at each c and the ladder at
+# 2^16 lanes) and by config 4's witness (its Montgomery encode)
+TOY_KERNELS = ("B1", "B4", "B5l")
+SWEEP_KERNELS = MSM_KERNELS + ("B5l",)
+CONFIG4_KERNELS = ("B1",)
+
+
+def toy_phase(dev, report) -> dict:
+    """The proofs of the seven toy-circuit tests of tests/test_plonk.py and
+    tests/test_range_lookup.py (`plonk.toy.prove_toy`) on the card under
+    the seeded streams of tests/data/torch_golden_toys.npz: every proof's
+    bytes equal to the JAX package's, every verdict the JAX one (tampered
+    proofs rejected, the out-of-range witness refused with the JAX text).
+    The counts are reset before the proofs and read after them."""
+    import numpy as np
+
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.ipa import setup
+    from tinyram_tpu_torch.plonk import toy
+
+    rec = dict(np.load(os.path.join(ROOT, "tests", "data",
+                                    "torch_golden_toys.npz")))
+    t0 = time.time()
+    srs = {k: setup(k, dev) for k in {k for _, k in toy.TOY_CIRCUITS.values()}}
+    keys = {c: toy.toy_keys(c, srs[k], dev)
+            for c, (_, k) in toy.TOY_CIRCUITS.items()}
+    out = {"keygen_s": time.time() - t0, "tests": {}}
+    kernels.reset_launch_counts()
+    t_all = time.time()
+    for test, (circuit, seed) in toy.TOY_TESTS.items():
+        t, pk = keys[circuit]
+        k = toy.TOY_CIRCUITS[circuit][1]
+        t0 = time.time()
+        got = toy.prove_toy(test, srs[k], pk, t, SeededRng(seed), dev)
+        dt = time.time() - t0
+        if test == "range_out_of_range":
+            same = got["error"] == str(rec[f"{test}/error"])
+            want = {}
+        else:
+            same = got["proof"] == rec[f"{test}/proof"].tobytes()
+            prefix = f"{test}/outcome/"
+            want = {key[len(prefix):]: bool(v) for key, v in rec.items()
+                    if key.startswith(prefix)}
+        verdicts = got["outcomes"] == want
+        out["tests"][test] = {"seconds": dt, "equal": same,
+                              "verdicts_equal": verdicts,
+                              "outcomes": got["outcomes"],
+                              "error": got["error"]}
+        log(f"[toys] {test}: {dt:.2f}s, equal to the JAX "
+            f"{'error' if got['proof'] is None else 'bytes'}: {same}, "
+            f"verdicts {got['outcomes']} equal to JAX: {verdicts}")
+        if not (same and verdicts):
+            raise AssertionError(f"the toy proof {test} differs from JAX's")
+    out["seconds"] = time.time() - t_all
+    out["launches"] = kernels.launch_counts()
+    log(f"[toys] seven tests {out['seconds']:.2f}s (keygen "
+        f"{out['keygen_s']:.2f}s); launches {out['launches']}")
+    missing = [k for k in TOY_KERNELS if out["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"the toy proofs never launched {missing}")
+    report["toys"] = out
+    return out["launches"]
+
+
+def msm_window_phase(dev, report) -> dict:
+    """`tune_msm_window.run(16)` (the Pippenger MSM at c = 12..16 on
+    `setup(16)`'s generators, every sum equal to the chooser's and to the
+    ladder's) and `verify_signed_msm.run(16, (16,))` (Pippenger at c = 8
+    and 13 against the host oracle on 256 points; at 2^16 against the
+    ladder `_msm_small` on 2^16 lanes; the rate of `msm` at 2^16), with the
+    counts reset before them: every Pippenger kernel and B5l must launch."""
+    from tinyram_tpu_torch import kernels, tune_msm_window, verify_signed_msm
+
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    sweep = tune_msm_window.run(16, device=dev,
+                                log=lambda m: log(f"[msm window] {m}"))
+    signed = verify_signed_msm.run(16, (16,), device=dev,
+                                   log=lambda m: log(f"[signed msm] {m}"))
+    launches = kernels.launch_counts()
+    out = {"sweep": sweep, "signed": signed, "launches": launches,
+           "seconds": time.time() - t0}
+    log(f"[msm window] chooser c={sweep['chooser_c']}, fastest "
+        f"c={sweep['fastest_c']}; {out['seconds']:.2f}s; launches {launches}")
+    report["msm_window"] = out
+    if not (sweep["ok"] and signed["ok"]):
+        raise AssertionError("the window sweep or the signed check found a "
+                             "mismatch")
+    missing = [k for k in SWEEP_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the window sweep never launched {missing}")
+    return launches
+
+
+def config4_phase(dev, report) -> dict:
+    """BASELINE config 4's first stage at full size (2^20 steps, W=24,
+    k=21) through `prove_config(4, mock=False, prove=False)`, what
+    scripts/torch_prove_config4.py runs first: the Python and native traces
+    equal, the witness built on the card (seconds, peak and held GiB per
+    stage), its encode's launches counted; then the witness is freed."""
+    import gc
+
+    import torch
+
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.tinyram.prove_config import prove_config
+
+    before = torch.cuda.memory_allocated(dev)
+    kernels.reset_launch_counts()
+    rep = prove_config(4, mock=False, prove=False, device=dev,
+                       cache_dir=None, log=log, frugal=True)
+    launches = kernels.launch_counts()
+    objects = rep.pop("objects")
+    n_columns = sum(len(x) for x in (objects["asg"].fixed,
+                                     objects["asg"].advice,
+                                     objects["asg"].instance))
+    del objects
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"steps": rep["steps"], "accesses": rep["accesses"], "k": rep["k"],
+           "columns": n_columns, "seconds": rep["seconds"],
+           "peak_gib": {k: v / 2**30 for k, v in rep["peak_bytes"].items()},
+           "held_gib": {k: v / 2**30 for k, v in rep["held_bytes"].items()},
+           "allocated_before_gib": before / 2**30,
+           "allocated_after_free_gib": torch.cuda.memory_allocated(dev) / 2**30,
+           "launches": launches,
+           "widest_b1": kernels.widest_launches().get("B1")}
+    log(f"[config4] {out['steps']} steps, k={out['k']}, {n_columns} columns; "
+        f"seconds {out['seconds']}; peak GiB {out['peak_gib']}; held GiB "
+        f"{out['held_gib']}; after freeing the witness "
+        f"{out['allocated_after_free_gib']:.2f} GiB; launches {launches}")
+    report["config4"] = out
+    missing = [k for k in CONFIG4_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the config-4 witness never launched {missing}")
+    if out["allocated_after_free_gib"] > out["allocated_before_gib"] + 0.01:
+        raise AssertionError("the config-4 witness was not freed")
+    return launches
+
+
 def kernel_rows(checks, probe, launches, launches3, paths, checks16) -> list:
     """The kernels line: each kernel at config 2's shapes, its launches in
     one config-2 proof (P1, P2: in the probe path; M1, A1, A2: at phase
@@ -1931,6 +2112,17 @@ def main() -> int:
                                          launches2)
     report["kernels_mxu_affine"] = checks16
     phase_s["mxu/affine"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    toy_launches = toy_phase(dev, report)
+    phase_s["toys"] = time.time() - t0
+    t0 = time.time()
+    sweep_launches = msm_window_phase(dev, report)
+    phase_s["msm window"] = time.time() - t0
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    config4_launches = config4_phase(dev, report)
+    phase_s["config4 witness"] = time.time() - t0
     log(f"[phases] seconds {phase_s}; setup(20) "
         f"{report['verify_msm']['setup20_s']:.2f}s")
     report["total_s"] = time.time() - t_start
@@ -1943,6 +2135,9 @@ def main() -> int:
         paths[f"bench {name}, per call"] = res["launches"]
     paths.update(shard_counts)
     paths.update(paths16)
+    paths.update({"toy proofs": toy_launches,
+                  "msm window sweep + signed 2^16": sweep_launches,
+                  "config4 witness": config4_launches})
     rows = kernel_rows(checks, probe, launches2,
                        report["config3"]["launches"], paths, checks16)
     report["kernel_rows"] = rows

@@ -65,6 +65,12 @@ def verify_proof(
 _INSTANCE_COMM_CACHE: dict = {}
 
 
+def clear_instance_cache() -> None:
+    """Drop every cached instance commitment (and its coefficient columns:
+    ~12.5 GiB an entry at k = 21)."""
+    _INSTANCE_COMM_CACHE.clear()
+
+
 def _instance_values(inst, n: int):
     """One instance column as host data: an int64 array when its values
     mod p fit in 62 bits (the TinyRAM columns: words, opcodes, flags),

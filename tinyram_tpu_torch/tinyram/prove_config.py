@@ -1,12 +1,13 @@
-"""BASELINE configs 2 and 3 through the port's entry points: the twin of
-`scripts/prove_config3.py`.
+"""BASELINE configs 2, 3 and 4 through the port's entry points: the twin
+of `scripts/prove_config3.py` and `scripts/prove_config4.py`.
 
-`prove_config` runs the stages of the JAX script on one device (the card
+`prove_config` runs the stages of the JAX scripts on one device (the card
 unless the caller names another):
 
-  1. emulate the configuration's program (`config2_program` or
-     `config3_program`, 2^steps_log2 steps at `word_bits`) with the Python
-     emulator and the native one, and require equal traces;
+  1. emulate the configuration's program (`config2_program`, or
+     `config3_program` for configs 3 and 4, 2^steps_log2 steps at
+     `word_bits`) with the Python emulator and the native one, and require
+     equal traces;
   2. build the witness on `TinyRamCircuit(word_bits, 8, k)`;
   3. `mock`: the port's `MockProver` on that witness; any failure raises;
   4. `prove`: `setup(k)` (SRS cached on disk in `cache_dir`), the key from
@@ -22,11 +23,24 @@ and the four verifier phases ("prover.*", "verifier.*" of
 `utils.profiling.counters`).  Nothing is cut: W = 24, k = 17 is the JAX
 script's configuration (BASELINE config 3); config 2 is W = 24, 2^12
 steps, k = 14 (the row count its trace needs), as `bench.py`'s prover
-benchmark proves it.
+benchmark proves it; config 4 is `scripts/prove_config4.py`'s W = 24, 2^20
+steps, k = 21.
+
+`on_stage(name, seconds, peak_bytes, held_bytes, error)` is called as each
+stage ends (peak and held None off the card), and once more with the
+exception for the stage that an exception leaves, which `prove_config`
+then re-raises: a caller can write its record as the run goes
+(`scripts/torch_prove_config4.py`).  With `frugal` (config 4's callers
+pass it) the verifier's instance-commitment cache (one entry is the
+instance columns' coefficients, ~12.5 GiB at k = 21) is emptied after each
+verification, with the device memory held before and after in
+"instance_cache_held", and the allocator's free blocks are returned to the
+device after each stage.
 """
 
 from __future__ import annotations
 
+import gc
 import os
 import secrets
 import time
@@ -38,6 +52,7 @@ from .. import kernels
 from ..ipa import setup
 from ..ipa.srs import CACHE_DIR
 from ..plonk import MockProver, create_proof, load_pk, save_pk
+from ..plonk import verifier
 from ..utils.device import CUDA, resolve
 from ..utils.profiling import counters
 from .bench_programs import config2_program, config3_program
@@ -49,7 +64,8 @@ WORD_BITS = 24
 REG_COUNT = 8
 K = 17  # a 2^16-step trace and its memory log fit 2^17 rows
 # BASELINE config -> (program, steps_log2, k; None: the rows the trace needs)
-CONFIGS = {2: (config2_program, 12, None), 3: (config3_program, 16, K)}
+CONFIGS = {2: (config2_program, 12, None), 3: (config3_program, 16, K),
+           4: (config3_program, 20, 21)}
 
 
 def key_path(cache_dir: str, config: int, word_bits: int, k: int) -> str:
@@ -75,15 +91,26 @@ def trace_mismatch(a: Trace, b: Trace) -> list[str]:
 class _Stages:
     """Times each stage after the device has finished and, on the card,
     records its peak device memory and the memory still allocated after
-    it."""
+    it; `on_stage` (see the module's docstring) hears of each stage as it
+    ends, and of the one an exception leaves.  `frugal` returns the
+    allocator's free blocks to the device after each stage."""
 
-    def __init__(self, device, log, tag):
+    def __init__(self, device, log, tag, on_stage=None, frugal=False):
         self.device = device
         self.log = log
         self.tag = tag
+        self.on_stage = on_stage
+        self.frugal = frugal
         self.seconds: dict = {}
         self.peak_bytes: dict = {}
         self.held_bytes: dict = {}
+
+    def _memory(self):
+        """(peak, allocated) bytes on the card since the stage began."""
+        if self.device.type != "cuda":
+            return None, None
+        return (torch.cuda.max_memory_allocated(self.device),
+                torch.cuda.memory_allocated(self.device))
 
     def __call__(self, name, fn):
         cuda = self.device.type == "cuda"
@@ -91,34 +118,57 @@ class _Stages:
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.time()
-        out = fn()
+        try:
+            out = fn()
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        except BaseException as e:
+            if self.on_stage is not None:
+                self.on_stage(name, time.time() - t0, *self._memory(), e)
+            raise
         if cuda:
-            torch.cuda.synchronize(self.device)
-            self.peak_bytes[name] = torch.cuda.max_memory_allocated(self.device)
-            self.held_bytes[name] = torch.cuda.memory_allocated(self.device)
+            self.peak_bytes[name], self.held_bytes[name] = self._memory()
         self.seconds[name] = time.time() - t0
         peak = (f", peak device memory {self.peak_bytes[name] / 2**30:.2f} GiB"
                 f", held after {self.held_bytes[name] / 2**30:.2f} GiB"
                 if cuda else "")
         self.log(f"[{self.tag}] {name}: {self.seconds[name]:.2f}s{peak}")
+        if self.frugal:
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        if self.on_stage is not None:
+            self.on_stage(name, self.seconds[name], self.peak_bytes.get(name),
+                          self.held_bytes.get(name), None)
         return out
+
+    def drop_instance_cache(self) -> dict:
+        """Empty the verifier's instance-commitment cache; the device bytes
+        allocated before and after (None off the card)."""
+        before = self._memory()[1]
+        verifier.clear_instance_cache()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return {"before": before, "after": self._memory()[1]}
 
 
 def prove_config(config: int = 3, steps_log2: int | None = None,
                  mock: bool = True, prove: bool = True, device=CUDA,
                  cache_dir: str | None = CACHE_DIR, rng=secrets,
                  word_bits: int = WORD_BITS, k: int | None = None, log=print,
-                 warm: int = 0) -> dict:
-    """Run the stages of BASELINE config `config` (2 or 3) at its steps
+                 warm: int = 0, on_stage=None, frugal: bool = False) -> dict:
+    """Run the stages of BASELINE config `config` (2, 3 or 4) at its steps
     and k unless `steps_log2` or `k` say otherwise; returns a report
     (seconds, peak bytes, phases, launches, sizes) and the objects of the
-    run under "objects".
+    run under "objects".  `on_stage`, `frugal`: see the module's
+    docstring.
     `warm` more proofs follow the first, each timed ("warm_prove_s") with
     its phases ("warm_phases": the last one's).  Raises if the
     traces differ, the mock names a failure, the proof is rejected or
     answer + 1 is accepted."""
     dev = resolve(device)
-    stage = _Stages(dev, log, f"config{config}")
+    stage = _Stages(dev, log, f"config{config}", on_stage, frugal)
     program, default_steps, default_k = CONFIGS[config]
     steps_log2 = default_steps if steps_log2 is None else steps_log2
     k = default_k if k is None else k
@@ -181,12 +231,18 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
         counters.seconds.clear()
         ok = stage("verify", lambda: circ.verify(srs, pk, prog, trace.answer,
                                                  proof))
+        if frugal:
+            report["instance_cache_held"] = {
+                "verify": stage.drop_instance_cache()}
         report["verifier_phases"] = {
             name[len("verifier."):]: v["seconds"]
             for name, v in counters.report().items()
             if name.startswith("verifier.")}
         bad_ok = stage("verify answer+1", lambda: circ.verify(
             srs, pk, prog, trace.answer + 1, proof))
+        if frugal:
+            report["instance_cache_held"]["verify answer+1"] = \
+                stage.drop_instance_cache()
         report["proof_bytes"] = len(proof)
         log(f"[config{config}] proof {len(proof)} bytes, verify={ok}, answer+1 "
             f"accepted={bad_ok}; launches {report['launches']}; verifier "
