@@ -127,16 +127,26 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     lanes, the rate at 2^16).
 19. BASELINE config 4's first stage at full size (2^20 steps, W=24, k=21)
     through `prove_config(4, mock=False, prove=False)`: the traces equal,
-    the witness built on the card with each stage's seconds, peak and held
-    GiB; the witness is freed before the script ends (the mock and the
-    proof run in scripts/torch_prove_config4.py, where they stop).
+    the witness encoded and held on the card (B1; its pinned store is
+    phase 20's), with each stage's seconds, peak and held GiB; the
+    witness is freed before the script ends (the mock, the proof and the
+    verification run in scripts/torch_prove_config4.py).
     In 17-19 the counts are reset before each path and its kernels must
     launch.
+20. (run after 11, beside phase 4's objects) Config 2 at config 4's
+    sizing (`sizing_phase`): the assignment in pinned host memory, the
+    proof by `create_proof(**SIZING[4].prover())` (transforms of 2 columns,
+    MSMs of two) within `memory_cap(0)` (the quotient one coset at a
+    time, as config 4's does where its whole lift does not fit) equal to phase 4's
+    bytes, its peak recorded and its counts reset before it; then B2 at
+    the levels of 2^21- and 2^23-point transforms and B4s, B6h, B6 at a
+    2^21-point commit pass's 32 windows, against their plain versions on
+    seeded samples.
 
 Prints the per-phase seconds and launch counts, the kernels' JSON line
 (each kernel at config 2's shapes, its launches in one config-2 proof and,
 as "launches_config3", in one config-3 proof, and as "launches_paths" in
-each path of 12-19; M1, A1 and A2 at phase 16's shapes, with the launches
+each path of 12-20; M1, A1 and A2 at phase 16's shapes, with the launches
 of the mxu/affine proof (A2: of the bench_msm twin)), and as its last line
 {"ok": true, "device": {...}}.  Any failure raises (exit code 1) before
 the last line; without a CUDA device it exits 1 too.
@@ -1202,6 +1212,138 @@ def golden_check(dev, report) -> None:
         raise AssertionError("W=8 proof differs from the JAX package's")
 
 
+# launched by the config-2 proof at config 4's sizing: commit passes of two
+# columns of 2^14 points are 2^15 lanes, so every MSM takes the ladder B5l
+SIZING_KERNELS = ("B1", "B2", "B4", "B5l")
+
+
+def sizing_phase(dev, report, cfg, tables) -> dict:
+    """Config 2 proved at config 4's sizing (`prove_config.SIZING[4]`):
+    the assignment in pinned host memory, transforms of 2 columns, MSMs of two,
+    the quotient one coset at a time (`memory_cap(0)`: config 2's whole
+    lift would fit).  Its bytes must equal phase 4's proof
+    under the same seeded stream; its peak device memory is recorded.  Then
+    B2 and the MSM kernels at config 4's shapes that no earlier phase
+    checks, each against its plain version on a seeded sample: B2's three
+    levels of an 8-column transform of 2^21 points and of the 2^23-point
+    quotient, B4s over the 32 windows (2 columns x 16) of a commit pass of
+    2^21 points, B6h and the doubling chains over its 16 windows of 2
+    lanes.  B3s (L = 128 over 2^15 lanes) and the carry fixup's B4/B5 (2^15
+    lanes) run at config 3's checked shapes there."""
+    import numpy as np
+    import torch
+
+    from tinyram_tpu_torch import kernels
+    from tinyram_tpu_torch.curve import cuda_point as cp
+    from tinyram_tpu_torch.curve.vesta import PointBatch
+    from tinyram_tpu_torch.field.field import FP
+    from tinyram_tpu_torch.plonk import create_proof
+    from tinyram_tpu_torch.poly import cuda_ntt
+    from tinyram_tpu_torch.tinyram.prove_config import SIZING
+    from tinyram_tpu_torch.utils.device import memory_cap
+
+    t0 = time.time()
+    sizing = SIZING[4]
+    asg = cfg["circ"].assignment(cfg["trace"], dev, host=sizing.host)
+    pinned = all(c.device.type == "cpu" and c.is_pinned()
+                 for c in asg.fixed + asg.advice + asg.instance)
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    kernels.reset_launch_counts()
+    t1 = time.time()
+    with memory_cap(0):
+        proof = create_proof(cfg["srs"], cfg["pk"], asg, rng=SeededRng(SEED),
+                             **sizing.prover())
+    sync()
+    prove_s = time.time() - t1
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    same = proof == cfg["proof"]
+    out = {"sizing": sizing.prover(), "pinned": pinned, "prove_s": prove_s,
+           "peak_gib": peak / 2**30, "allocated_before_gib": before / 2**30,
+           "equal": same, "launches": launches}
+    log(f"[sizing] config 2 at config 4's sizing {sizing.prover()}, witness "
+        f"pinned on the host: {pinned}; prove {prove_s:.2f}s, peak "
+        f"{peak / 2**30:.3f} GiB ({before / 2**30:.3f} before); bytes equal "
+        f"to phase 4's: {same}; launches {launches}")
+    del asg
+    if not (same and pinned):
+        raise AssertionError("config 2 at config 4's sizing: bytes differ "
+                             "or the witness is not in pinned host memory")
+    missing = [k for k in SIZING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the sized config-2 proof never launched "
+                             f"{missing}")
+
+    gen = np.random.default_rng(SEED + 20)
+    sass, product, _ = tables
+    checks = {}
+    record = functools.partial(record_row, checks, tag="config4 kernel")
+    # B2: the four-step levels (LOG_S_MAX = 10) of 8 columns of 2^21 and of
+    # one column of 2^23 (the quotient's inverse): rows of 1024, then of
+    # 64 / 128 with their cross multipliers, then 32 / 64 plain rows
+    for name, rows, log_s, cross in (
+            ("2^21 rows 1024", 8 << 11, 10, (10, 11)),
+            ("2^21 rows 64", 8 << 15, 6, (6, 5)),
+            ("2^21 rows 32", 8 << 16, 5, None),
+            ("2^23 rows 1024", 1 << 13, 10, (10, 13)),
+            ("2^23 rows 128", 1 << 16, 7, (7, 6)),
+            ("2^23 rows 64", 1 << 17, 6, None)):
+        S = 1 << log_s
+        mult = None if cross is None else torch.as_tensor(
+            cuda_ntt._cross_twiddles_host("Fp", *cross, False), device=dev)
+        x = device_limbs(gen, (rows, S), dev)
+        idx = sample(gen, rows, 128, dev)
+        m_idx = None if mult is None else mult[:, idx % mult.shape[1]]
+        record(f"B2 {name}",
+               lambda: cuda_ntt.colntt(x, FP, False, mult, None),
+               lambda: cuda_ntt.colntt_plain(x[:, idx], FP, False, m_idx),
+               5, 1, 2 * FE_BYTES * rows * S + FE_BYTES * S // 2
+               + (0 if mult is None else FE_BYTES * mult[0].numel()),
+               sass["B1"], rows * (S // 2 * log_s + (S if mult is not None
+                                                     else 0)),
+               pick=lambda t: t[:, idx], plain_lanes=len(idx))
+        del x, mult
+    # B4s: 32 windows of H = 256 lanes and S = 128 steps (c = 16, signed
+    # digits: 2^15 buckets a window), read through the msm's strided view
+    lanes = 1 << 15
+    p, _, _, _ = projective_points(gen, cfg["srs"], lanes, dev)
+    windows, H, S = 32, 256, 128
+    n_s = windows * H
+    pick = torch.as_tensor(gen.integers(0, lanes, size=windows * (H * S + 2)),
+                           device=dev)
+    bk = PointBatch(*(c[:, pick].reshape(16, windows, H * S + 2)[..., :H * S]
+                      .reshape(16, windows, H, S) for c in p))
+    w_idx = sample(gen, windows, 4, dev)
+    record("B4s", lambda: tuple(x for part in cp.padd_suffix_scan(bk)
+                                for x in part),
+           lambda: tuple(x for part in cp.suffix_scan_plain(
+               PointBatch(*(c[:, w_idx] for c in bk))) for x in part),
+           1, 1, 3 * FE_BYTES * S * n_s + 6 * FE_BYTES * n_s, product["B4s"],
+           (2 * S - 1) * ADD * n_s, pick=lambda t: tuple(x[:, w_idx] for x in t),
+           plain_lanes=len(w_idx) * H)
+    del bk, pick
+    # B6h over 16 windows of c = 16 for 2 columns; the doubling chains
+    nw, c_bits, cols = 16, 16, 2
+    ws = PointBatch(*(c[:, :nw * cols].reshape(16, nw, cols) for c in p))
+    record("B6h", lambda: tuple(cp.pdouble_horner(ws, c_bits)),
+           lambda: tuple(cp.horner_plain(ws, c_bits)), 3, 1,
+           3 * FE_BYTES * nw * cols + 3 * FE_BYTES * cols, product["B6h"],
+           nw * (c_bits * DBL + ADD) * cols, plain_lanes=cols)
+    p_w = PointBatch(*(c[:, :nw * cols].contiguous() for c in p))
+    for times in (15, 7):
+        record(f"B6 x{times}", lambda: tuple(cp.pdouble(p_w, times=times)),
+               lambda: tuple(cp.pdouble_plain(p_w, times)), 5, 1,
+               6 * FE_BYTES * nw * cols, product["B6"],
+               times * DBL * nw * cols, plain_lanes=nw * cols)
+    out["kernels"] = checks
+    out["seconds"] = time.time() - t0
+    report["sizing"] = out
+    log(f"[sizing] phase {out['seconds']:.1f}s")
+    return launches
+
+
 def entry_phase(dev, report) -> None:
     """`tinyram_tpu_torch.entry.entry()` (NTT -> multiply -> inverse NTT
     at 2^12, the twin of `__graft_entry__.entry()`) on the card, equal bit
@@ -1953,19 +2095,21 @@ def config4_phase(dev, report) -> dict:
     """BASELINE config 4's first stage at full size (2^20 steps, W=24,
     k=21) through `prove_config(4, mock=False, prove=False)`, what
     scripts/torch_prove_config4.py runs first: the Python and native traces
-    equal, the witness built on the card (seconds, peak and held GiB per
-    stage), its encode's launches counted; then the witness is freed."""
+    equal, the witness encoded and held on the card (the library's sizing:
+    pinning 40 GiB of host memory, as the script does, takes 45-100 s more;
+    phase 20 checks the pinned store), seconds, peak and held GiB per
+    stage, its encode's launches counted; then the witness is freed."""
     import gc
 
     import torch
 
     from tinyram_tpu_torch import kernels
-    from tinyram_tpu_torch.tinyram.prove_config import prove_config
+    from tinyram_tpu_torch.tinyram.prove_config import Sizing, prove_config
 
     before = torch.cuda.memory_allocated(dev)
     kernels.reset_launch_counts()
     rep = prove_config(4, mock=False, prove=False, device=dev,
-                       cache_dir=None, log=log, frugal=True)
+                       cache_dir=None, log=log, frugal=True, sizing=Sizing())
     launches = kernels.launch_counts()
     objects = rep.pop("objects")
     n_columns = sum(len(x) for x in (objects["asg"].fixed,
@@ -2075,6 +2219,7 @@ def main() -> int:
     batch_phase(dev, report, cfg)
     keyfile_phase(dev, report, cfg)
     golden_check(dev, report)
+    sizing_launches = sizing_phase(dev, report, cfg, tables)
     launches2 = cfg["launches"]
     proof2 = cfg["proof"]
     del cfg
@@ -2137,7 +2282,8 @@ def main() -> int:
     paths.update(paths16)
     paths.update({"toy proofs": toy_launches,
                   "msm window sweep + signed 2^16": sweep_launches,
-                  "config4 witness": config4_launches})
+                  "config4 witness": config4_launches,
+                  "config2 at config 4's sizing": sizing_launches})
     rows = kernel_rows(checks, probe, launches2,
                        report["config3"]["launches"], paths, checks16)
     report["kernel_rows"] = rows

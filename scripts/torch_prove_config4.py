@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """BASELINE config 4 (2^20 steps of the full ISA, W = 24, k = 21) through
-the PyTorch port, stage by stage until it stops: the twin of
-scripts/prove_config4.py (its stages and flags).
+the PyTorch port, stage by stage: the twin of scripts/prove_config4.py
+(its stages and flags).
 
 Usage: python3 scripts/torch_prove_config4.py [--mock] [--prove]
            [--device cuda|cpu] [--k K] [--word-bits W] [--out PATH]
@@ -10,15 +10,23 @@ Usage: python3 scripts/torch_prove_config4.py [--mock] [--prove]
 1. Emulates 2^steps_log2 steps with the Python and the native emulator
    (equal traces required) and builds the witness on the device;
 2. --mock: the port's MockProver on that witness (any failure raises);
-3. --prove: setup(k) (cached in build/cache/), the key from build/cache/
-   or keygen, create_proof, verify, and answer + 1 rejected.
+3. --prove: setup(k) (cached in build/cache/), keygen (the key is not
+   cached: its Lagrange columns rest on the host), create_proof, verify,
+   and answer + 1 rejected.
 
 Everything runs through `tinyram.prove_config.prove_config(4,
-frugal=True)`: free device blocks returned after each stage, the
-verifier's instance cache emptied after each verification.  The record (default chiprun_out/config4_report.json) is written when the run
-starts and again as each stage ends: each finished stage's seconds, peak
-and held GiB of device memory; the host's MemTotal (/proc/meminfo) and the
-process's peak RSS; the card's name and power limit; the circuit's sizes;
+frugal=True)`, at config 4's sizing (`prove_config.SIZING[4]`): the
+witness in pinned host memory (~40 GiB beside the process's own ~23 GiB),
+brought to the card a chunk at a time; transforms and MSMs of two
+columns, gate slabs of 8; the quotient lifted one coset at a time (its
+whole lift would not fit).  Free device blocks are returned
+after each stage and the verifier's instance cache is emptied after each
+verification.  The record (default chiprun_out/config4_report.json) is
+written when the run starts and again as each stage ends: each finished
+stage's seconds, peak and held GiB of device memory; the host's MemTotal
+(/proc/meminfo), the process's peak RSS and the pinned host memory the
+card's allocator holds; the card's name and power limit; the circuit's
+sizes and sizing;
 and, when a stage raises (the card's OutOfMemoryError, the host's
 MemoryError or any other), the stage that stopped, its exception's type
 and first line and the device memory at that moment.  A stopped run exits
@@ -78,6 +86,7 @@ class Record:
 
     def write(self) -> None:
         self.data["mem_total_gib"] = gib(mem_total_bytes())
+        self.data["pinned_gib"] = self.pinned()
         self.data["peak_rss_gib"] = {k: gib(v)
                                      for k, v in peak_rss_bytes().items()}
         os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
@@ -85,6 +94,18 @@ class Record:
         with open(tmp, "w") as f:
             json.dump(self.data, f, indent=1)
         os.replace(tmp, self.path)
+
+    def pinned(self) -> dict | None:
+        """The current and peak pinned host memory of the card's host
+        allocator (None off the card or where torch does not report it)."""
+        import torch
+
+        stats = getattr(torch.cuda, "host_memory_stats", None)
+        if self.device.type != "cuda" or stats is None:
+            return None
+        st = stats()
+        return {k: gib(st.get(f"allocated_bytes.{k}"))
+                for k in ("current", "peak")}
 
     def device_memory(self) -> dict | None:
         import torch
@@ -182,8 +203,8 @@ def main(argv=None) -> int:
     report.pop("objects")
     rec.data["total_s"] = time.time() - t0
     rec.data["sizes"].update(steps=report["steps"], accesses=report["accesses"])
-    for key in ("mock_failures", "proof_bytes", "phases", "verifier_phases",
-                "launches", "widest_launches"):
+    for key in ("sizing", "mock_failures", "proof_bytes", "phases",
+                "verifier_phases", "launches", "widest_launches"):
         if key in report:
             rec.data[key] = report[key]
     if "instance_cache_held" in report:

@@ -109,7 +109,10 @@ def test_instance_cache_dropped_after_a_config4_verify(monkeypatch):
     verification (one entry would be ~12.5 GiB at k = 21) and records the
     held bytes (None off the card).  Setup, keygen, the proof and the
     verifier are stubbed: a CPU proof costs minutes; each stubbed verify
-    fills the cache as the real one does."""
+    fills the cache as the real one does.  The stubs record what config
+    4's sizing (`SIZING[4]`) passes them: keygen's and the verifier's
+    commit width and keygen's host store, the prover's widths; the
+    witness rests in host memory."""
     from tinyram_tpu_torch.plonk import verifier
     from tinyram_tpu_torch.tinyram.circuit import TinyRamCircuit
 
@@ -117,9 +120,11 @@ def test_instance_cache_dropped_after_a_config4_verify(monkeypatch):
     clear = verifier.clear_instance_cache
 
     answers = []
+    got = {"keygen": [], "prove": [], "verify": []}
 
-    def verify(self, srs, pk, prog, answer, proof):  # accepts the first
+    def verify(self, srs, pk, prog, answer, proof, **sizing):  # accepts the first
         answers.append(answer)
+        got["verify"].append(sizing)
         verifier._INSTANCE_COMM_CACHE[answer] = ([torch.zeros(16, 4)], None)
         return len(answers) == 1
 
@@ -128,8 +133,16 @@ def test_instance_cache_dropped_after_a_config4_verify(monkeypatch):
         clear()
 
     monkeypatch.setattr(pc, "setup", lambda *a, **kw: "srs")
-    monkeypatch.setattr(TinyRamCircuit, "keygen", lambda self, srs: "pk")
-    monkeypatch.setattr(pc, "create_proof", lambda *a, **kw: b"proof")
+    def keygen(self, srs, **sizing):
+        got["keygen"].append(sizing)
+        return "pk"
+
+    def create_proof(srs, pk, asg, rng, phase_hook, **sizing):
+        got["prove"].append(sizing)
+        return b"proof"
+
+    monkeypatch.setattr(TinyRamCircuit, "keygen", keygen)
+    monkeypatch.setattr(pc, "create_proof", create_proof)
     monkeypatch.setattr(TinyRamCircuit, "verify", verify)
     monkeypatch.setattr(verifier, "clear_instance_cache", spy)
     monkeypatch.setattr(verifier, "_INSTANCE_COMM_CACHE", {})
@@ -138,6 +151,14 @@ def test_instance_cache_dropped_after_a_config4_verify(monkeypatch):
                              frugal=True)
     assert report["proof_bytes"] == len(b"proof")
     assert answers[1] == answers[0] + 1
+    sizing = pc.SIZING[4]
+    assert got == {
+        "keygen": [{"commit_chunk": sizing.commit_chunk, "host": True}],
+        "prove": [sizing.prover()],
+        "verify": [{"commit_chunk": sizing.commit_chunk}] * 2}
+    assert sizing.prover() == {"ext_chunk": 2, "gate_slab": 8,
+                               "commit_chunk": 2, "eval_slab": 8}
+    assert report["objects"]["asg"].host
     assert [len(c) for c in cleared] == [1, 1]  # one entry, after each verify
     assert verifier._INSTANCE_COMM_CACHE == {}
     assert report["instance_cache_held"] == {

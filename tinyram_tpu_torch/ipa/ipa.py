@@ -226,10 +226,14 @@ def verify_open(srs: SRS, tr: TranscriptReader, commitment: AffinePoint,
 
 def pass_widths(cols: int, commit_chunk: int = COMMIT_CHUNK) -> list[int]:
     """The column counts of `commit_many`'s MSM passes over `cols` vectors:
-    `commit_chunk` at most each, padded to a power of two (at least 4)."""
+    `commit_chunk` at most each, padded to a power of two (at least 4, or
+    at least 1 when `commit_chunk` is below 4: a pass of four columns of
+    2^21 points does not fit beside config 4's proof).  Padding repeats a
+    column and its results are dropped, so the widths never change a
+    commitment."""
     widths = []
     for lo in range(0, cols, commit_chunk):
-        target = 4
+        target = 4 if commit_chunk >= 4 else 1
         while target < min(commit_chunk, cols - lo):
             target *= 2
         widths.append(target)

@@ -211,20 +211,48 @@ class ConstraintSystem:
         return max(1, (d - 2).bit_length())
 
 
+def pinned(t: torch.Tensor) -> torch.Tensor:
+    """A copy of a card's tensor in page-locked host memory (what crosses
+    back in one DMA); a host tensor as it is."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
+
+
 class Assignment:
     """Column arrays for one circuit instance.
 
-    Arrays are (16, n) int32 limb tensors in Montgomery form on `device`.
-    Helpers accept numpy int arrays (values mod p) and encode them.
+    Arrays are (16, n) int32 limb tensors in Montgomery form, encoded on
+    `device`.  With `host`, each column is moved to host memory once it is
+    encoded (page-locked when `device` is the card, so a column goes back
+    in one DMA), and `fetch` brings a column to `device` for one use: the
+    card never holds the whole witness (config 4's is 40 GiB).  Without,
+    the columns stay on `device`.  Helpers accept numpy int arrays (values
+    mod p) and encode them.
     """
 
-    def __init__(self, cs: ConstraintSystem, n: int, device=CUDA):
+    def __init__(self, cs: ConstraintSystem, n: int, device=CUDA,
+                 host: bool = False):
         self.cs = cs
         self.n = n
         self.device = resolve(device)
+        self.host = host
         self.fixed: list[Optional[torch.Tensor]] = [None] * cs.num_fixed
         self.advice: list[Optional[torch.Tensor]] = [None] * cs.num_advice
         self.instance: list[Optional[torch.Tensor]] = [None] * cs.num_instance
+
+    def _store(self, arr: torch.Tensor) -> torch.Tensor:
+        """A column as it rests: on `device`, or moved to the host."""
+        return pinned(arr) if self.host else arr
+
+    def fetch(self, kind: str, index: int) -> torch.Tensor:
+        """Column `index` of `kind` on `device`: the stored tensor itself,
+        or a copy brought from the host."""
+        v = getattr(self, kind)[index]
+        assert v is not None, f"unassigned {kind}[{index}]"
+        return v.to(self.device, non_blocking=True)
 
     def _encode(self, values) -> torch.Tensor:
         arr = np.asarray(values)
@@ -240,7 +268,7 @@ class Assignment:
             assert tuple(arr.shape) == (N_LIMBS, self.n)
         else:
             arr = self._encode(values)
-        getattr(self, col.kind)[col.index] = arr
+        getattr(self, col.kind)[col.index] = self._store(arr)
 
     def get(self, col: Column) -> torch.Tensor:
         v = getattr(self, col.kind)[col.index]
@@ -252,4 +280,4 @@ class Assignment:
         for lst in (self.fixed, self.advice, self.instance):
             for i, v in enumerate(lst):
                 if v is None:
-                    lst[i] = FP.zeros((self.n,), self.device)
+                    lst[i] = self._store(FP.zeros((self.n,), self.device))

@@ -18,10 +18,10 @@ import torch
 from ..curve.host import AffinePoint
 from ..field.field import FP
 from ..ipa import SRS
-from ..ipa.ipa import commit_many
+from ..ipa.ipa import COMMIT_CHUNK, commit_many
 from ..poly.domain import Domain, domain_cache
 from ..poly.ntt import _mont_table, omega_for
-from .circuit import Assignment, Column, ConstraintSystem
+from .circuit import Assignment, Column, ConstraintSystem, pinned
 
 P = FP.modulus
 
@@ -92,9 +92,15 @@ def build_permutation_sigmas(
 
 
 def keygen(
-    srs: SRS, cs: ConstraintSystem, fixed_assignment: Assignment
+    srs: SRS, cs: ConstraintSystem, fixed_assignment: Assignment,
+    commit_chunk: int = COMMIT_CHUNK, host: bool = False,
 ) -> ProvingKey:
-    """Build pk/vk.  ``fixed_assignment`` must have all fixed columns set."""
+    """Build pk/vk.  ``fixed_assignment`` must have all fixed columns set;
+    ``commit_chunk``: columns per transform and MSM pass of their
+    commitments, as in `create_proof` (any width gives the same key).
+    With ``host`` the fixed Lagrange columns rest in host memory (pinned
+    when the key is on the card; `create_proof` brings each one over for
+    its use), as `Assignment(host=True)` keeps the witness."""
     k = srs.k
     n = 1 << k
     dev = srs.device
@@ -111,10 +117,21 @@ def keygen(
         torch.as_tensor(_mont_table(FP, [int(v) for v in tbl]), device=dev)
         for tbl in sigma_tables
     ]
-    all_lag = torch.stack(fixed_lag + sigma_lag, dim=1)
-    all_coeff = domain.lagrange_to_coeff(all_lag)
+    cols = fixed_lag + sigma_lag
+    all_coeff = None  # one stack, `commit_chunk` columns transformed at once
+    for lo in range(0, len(cols), commit_chunk):
+        part = domain.lagrange_to_coeff(
+            torch.stack(cols[lo : lo + commit_chunk], dim=1))
+        if all_coeff is None:
+            all_coeff = part.new_empty(part.shape[:1] + (len(cols),)
+                                       + part.shape[2:])
+        all_coeff[:, lo : lo + part.shape[1]] = part
+        del part
+    if host:
+        fixed_lag = [pinned(v) for v in fixed_lag]
     all_comms = commit_many(
-        srs, [all_coeff[:, i] for i in range(all_coeff.shape[1])]
+        srs, [all_coeff[:, i] for i in range(all_coeff.shape[1])],
+        commit_chunk=commit_chunk,
     )
     nf = len(fixed_lag)
     vk = VerifyingKey(

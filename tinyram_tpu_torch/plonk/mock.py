@@ -5,6 +5,15 @@ witness columns on the assignment's device (kernel B1 for every multiply
 on the card), checks lookups as multisets and copy constraints directly,
 and reports per-gate per-row failures by name.  The `Failure` list equals
 the JAX package's: the same kind, name and detail, in the same order.
+
+Every pass is cut to at most `EVAL_ELEMENTS` expression values: the gate
+check into passes of polynomials over all rows (as the JAX mock does),
+the lookup and LogUp checks into row slices, each of which evaluates a
+lookup's expressions on its rows only (a rotation reads across the
+slice's edge, wrapping around the column as `torch.roll` does) and is
+decoded into host int64 before the membership merge over all rows.  A
+column stored on the host (`Assignment(host=True)`) comes to the device
+for the pass or slice that reads it.
 """
 
 from __future__ import annotations
@@ -18,21 +27,20 @@ from ..field.field import FP
 from .circuit import Assignment, ConstraintSystem
 from .prover import _eval_exprs_on
 
-EVAL_ELEMENTS = 1 << 25  # cap on gate polynomials × rows per batched pass
+EVAL_ELEMENTS = 1 << 25  # cap on expression values (× rows) per pass
 
 
 def _decode_cols_i64(cols: list[torch.Tensor]):
     """Decode a list of (16, n) Montgomery columns to one (B, n) int64
     array in a single from_mont and device fetch, or None if any value
-    exceeds 62 bits (the caller falls back to per-value bigints)."""
+    exceeds 62 bits (the caller falls back to per-value bigints).  The
+    limbs are joined on the device, so 8 bytes an element cross."""
     stack = FP.from_mont(torch.stack(cols, dim=1))  # (16, B, n)
-    host = stack.cpu().numpy().astype(np.int64)
-    if host[4:].any() or (host[3] >> 14).any():
+    if bool(stack[4:].any()) or bool((stack[3] >> 14).any()):
         return None
-    out = host[0]
-    for i in range(1, 4):
-        out |= host[i] << (16 * i)
-    return out  # (B, n)
+    s64 = stack[:4].to(torch.int64)
+    out = s64[0] | (s64[1] << 16) | (s64[2] << 32) | (s64[3] << 48)
+    return out.cpu().numpy()  # (B, n)
 
 
 def _rows_member(rows: np.ndarray, table: np.ndarray) -> np.ndarray:
@@ -48,6 +56,47 @@ def _rows_member(rows: np.ndarray, table: np.ndarray) -> np.ndarray:
     return np.isin(rv, tv)
 
 
+class _RowSlice:
+    """The roll of `_eval_exprs_on` for one row slice [lo, hi): rows
+    lo + shift … hi − 1 + shift of the whole (stored) column, wrapping
+    around its n rows as `torch.roll` does, on `device`."""
+
+    def __init__(self, lo: int, hi: int, n: int, device):
+        self.lo, self.rows, self.n, self.device = lo, hi - lo, n, device
+
+    def __call__(self, x: torch.Tensor, shift: int) -> torch.Tensor:
+        a = (self.lo + shift) % self.n
+        if a + self.rows <= self.n:
+            part = x[:, a : a + self.rows]
+        else:
+            part = torch.cat([x[:, a:], x[:, : a + self.rows - self.n]],
+                             dim=-1)
+        return part.to(self.device).contiguous()
+
+
+def _decode_sliced(exprs, asg: Assignment, rows: int) -> np.ndarray:
+    """(len(exprs), rows) values of the expressions on rows [0, rows),
+    evaluated and decoded in slices of at most EVAL_ELEMENTS values: int64,
+    or Python ints (an object array) when a value exceeds 62 bits."""
+    step = max(1, EVAL_ELEMENTS // max(len(exprs), 1))
+
+    def get_col(kind, index):  # the stored column (host or device)
+        col = getattr(asg, kind)[index]
+        assert col is not None, f"unassigned {kind}[{index}]"
+        return col
+
+    parts = []
+    for lo in range(0, rows, step):
+        hi = min(rows, lo + step)
+        devs = _eval_exprs_on(exprs, get_col, 1, {},
+                              _RowSlice(lo, hi, asg.n, asg.device))
+        fast = _decode_cols_i64(devs)
+        parts.append(fast if fast is not None else np.array(
+            [FP.decode(c) for c in devs], dtype=object))
+        del devs
+    return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+
+
 @dataclass
 class Failure:
     kind: str  # "gate" | "lookup" | "copy"
@@ -59,12 +108,14 @@ class Failure:
 
 
 def _eval_exprs_lagrange(exprs, asg: Assignment, cache: dict | None = None):
-    """Batched lagrange-domain evaluation (see prover._eval_exprs_on)."""
+    """Batched lagrange-domain evaluation (see prover._eval_exprs_on); each
+    column read comes to the device once a call (`Assignment.fetch`)."""
+    fetched: dict = {}
 
     def get_col(kind, index):
-        base = getattr(asg, kind)[index]
-        assert base is not None, f"unassigned {kind}[{index}]"
-        return base
+        if (kind, index) not in fetched:
+            fetched[(kind, index)] = asg.fetch(kind, index)
+        return fetched[(kind, index)]
 
     return _eval_exprs_on(exprs, get_col, 1, cache)
 
@@ -111,86 +162,58 @@ class MockProver:
                 )
 
         # lookups: every (input expr tuple) row must appear in the table
-        # multiset.  All expressions of a lookup evaluate in one batched
-        # pass and decode in one device fetch; the tuple membership is a
-        # vectorized sorted merge.  Values beyond 62 bits take the bigint
-        # path.
+        # multiset.  A lookup's expressions evaluate in row slices, each
+        # batched and decoded in one device fetch; the tuple membership is
+        # a vectorized sorted merge over all rows.  Values beyond 62 bits
+        # take the bigint path.
         u = self.cs.usable_rows(n)
         for lk in self.cs.lookups:
-            cache: dict = {}
             k_in = len(lk.inputs)
-            devs = _eval_exprs_lagrange(list(lk.inputs) + list(lk.tables),
-                                        asg, cache)
-            fast = _decode_cols_i64(devs)
-            if fast is not None:
-                rows_in = fast[:k_in, :u].T  # (u, k)
-                tb_rows = fast[k_in:, :].T   # (n, k): the table spans all
-                # rows (selector-gated table exprs zero out the others)
-                ok = _rows_member(rows_in, tb_rows)
-                bad = np.nonzero(~ok)[0]
-                if len(bad):
-                    r0 = int(bad[0])
-                    failures.append(
-                        Failure(
-                            "lookup",
-                            lk.name,
-                            f"input row {r0} = {tuple(rows_in[r0].tolist())}"
-                            " not in table",
-                        )
-                    )
+            vals = _decode_sliced(list(lk.inputs) + list(lk.tables), asg, n)
+            rows_in = vals[:k_in, :u].T  # (u, k)
+            tb_rows = vals[k_in:, :].T   # (n, k): the table spans all rows
+            # (selector-gated table exprs zero out the others)
+            if vals.dtype != object:
+                bad = np.nonzero(~_rows_member(rows_in, tb_rows))[0]
             else:
-                in_vals = [FP.decode(d) for d in devs[:k_in]]
-                tb_vals = [FP.decode(d) for d in devs[k_in:]]
-                table = set(zip(*tb_vals)) if tb_vals else set()
-                rows_iter = list(zip(*(col[:u] for col in in_vals)))
-                for row, tup in enumerate(rows_iter):
-                    if tup not in table:
-                        failures.append(
-                            Failure(
-                                "lookup",
-                                lk.name,
-                                f"input row {row} = {tup} not in table",
-                            )
-                        )
-                        break
+                table = set(map(tuple, tb_rows.tolist()))
+                bad = [r for r, tup in enumerate(map(tuple, rows_in.tolist()))
+                       if tup not in table][:1]
+            if len(bad):
+                r0 = int(bad[0])
+                failures.append(
+                    Failure(
+                        "lookup",
+                        lk.name,
+                        f"input row {r0} = {tuple(rows_in[r0].tolist())}"
+                        " not in table",
+                    )
+                )
+            del vals, rows_in, tb_rows
 
         # range lookups (LogUp arguments): every input value on every
         # usable row must be a member of the table column's usable rows
         for rl in self.cs.range_lookups:
-            cache = {}
-            devs = _eval_exprs_lagrange([rl.table] + list(rl.inputs),
-                                        asg, cache)
-            fast = _decode_cols_i64(devs)
-            if fast is not None:
-                t_vals = fast[0, :u]
-                for ei in range(len(rl.inputs)):
-                    vals = fast[1 + ei, :u]
-                    rows = np.nonzero(~np.isin(vals, t_vals))[0]
-                    if len(rows):
-                        r0 = int(rows[0])
-                        failures.append(
-                            Failure(
-                                "lookup",
-                                f"{rl.name}[{ei}]",
-                                f"input row {r0} = {int(vals[r0])}"
-                                " not in table",
-                            )
+            vals = _decode_sliced([rl.table] + list(rl.inputs), asg, u)
+            t_vals = vals[0]
+            t_set = set(t_vals.tolist()) if vals.dtype == object else None
+            for ei in range(len(rl.inputs)):
+                col = vals[1 + ei]
+                if t_set is None:
+                    rows = np.nonzero(~np.isin(col, t_vals))[0]
+                else:
+                    rows = [r for r, v in enumerate(col.tolist())
+                            if v not in t_set][:1]
+                if len(rows):
+                    r0 = int(rows[0])
+                    failures.append(
+                        Failure(
+                            "lookup",
+                            f"{rl.name}[{ei}]",
+                            f"input row {r0} = {int(col[r0])} not in table",
                         )
-            else:
-                t_list = FP.decode(devs[0])[:u]
-                t_set = set(t_list)
-                for ei in range(len(rl.inputs)):
-                    vals = FP.decode(devs[1 + ei])[:u]
-                    rows = [r for r, v in enumerate(vals) if v not in t_set]
-                    if len(rows):
-                        r0 = int(rows[0])
-                        failures.append(
-                            Failure(
-                                "lookup",
-                                f"{rl.name}[{ei}]",
-                                f"input row {r0} = {vals[r0]} not in table",
-                            )
-                        )
+                    )
+            del vals
 
         # copy constraints
         for (a, ar), (b, br) in self.cs.copies:

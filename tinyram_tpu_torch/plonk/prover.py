@@ -26,10 +26,21 @@ The reference compiles each constraint block into one XLA program; here
 every block is evaluated eagerly, one field operation per call (kernel B1
 for every multiply on a CUDA device).  Its memory knobs are keyword
 arguments with the reference's defaults: `ext_chunk` (columns per coset
-NTT call), `gate_slab` (gate polynomials per quotient block) and
-`commit_chunk` (columns per batched MSM), and so are its algorithm
-switches: `ntt_method="mxu"` (the reference's `TINYRAM_NTT=mxu`: the domain
-transforms run the digit-matmul NTT, kernel M1) and `msm_affine=True`
+NTT call), `gate_slab` (gate polynomials per quotient block),
+`commit_chunk` (columns per batched MSM) and `eval_slab` (columns a stack
+holds in the evaluations and in the multiopen fold).  The quotient lifts its blocks
+to the whole extended coset where the widest block fits in the device's
+free memory (`utils.device.free_bytes`), and else one coset of the
+extended domain at a time, a quarter of the whole lift's transient at
+degree 4 (`quotient_coeff`).  The assignment's instance and
+advice columns are brought to the device for each use, a chunk at a time
+(`_Lagrange`), so an assignment stored in host memory
+(`Assignment(host=True)`) never rests on the card whole; only their
+coefficients stay there.  These are what let config 4 (k = 21) prove on
+one 80 GiB card (`tinyram/prove_config.py` `SIZING`).  Its algorithm
+switches are keyword arguments too: `ntt_method="mxu"` (the reference's
+`TINYRAM_NTT=mxu`: the domain transforms run the digit-matmul NTT, kernel
+M1) and `msm_affine=True`
 (`TINYRAM_MSM_AFFINE=1`: the commitments' and opening rounds' Pippenger
 MSMs run the batched-affine bucket scan, kernel A1), through the context
 of `utils/algorithms.py`; the mesh branches keep their algorithms.  The
@@ -48,14 +59,15 @@ import torch
 
 from .. import kernels
 from ..field.field import FP
-from ..field.params import limb_array_to_ints, limbs_to_int
+from ..field.params import N_LIMBS, limb_array_to_ints, limbs_to_int
 from ..ipa import SRS
 from ..ipa.ipa import COMMIT_CHUNK, commit, commit_many, open_poly
 from ..poly.ntt import _mont_table, eval_poly_rows, tree_sum
 from ..transcript import TranscriptWriter
 from ..utils.algorithms import algorithms
+from ..utils.device import free_bytes
 from ..utils.profiling import counters
-from .circuit import Assignment
+from .circuit import Assignment, pinned
 from .expr import batched_evaluate, queried_vars
 from .keygen import ProvingKey, delta
 from .protocol import eval_schedule, multiopen_point_order
@@ -63,8 +75,7 @@ from .protocol import eval_schedule, multiopen_point_order
 P = FP.modulus
 EXT_CHUNK = 64  # coset-NTT columns per call (reference default)
 GATE_SLAB = 48  # gate polynomials per quotient block (reference default)
-EVAL_SLAB = 64  # columns per batched evaluation
-FOLD_SLAB = 64  # columns per multiopen fold
+EVAL_SLAB = 64  # columns per batched evaluation and per multiopen fold
 
 
 class _Phases:
@@ -195,31 +206,91 @@ def _compress(vals: list[torch.Tensor], th: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _lift_chunked(dom, stack: torch.Tensor, ext_chunk: int) -> torch.Tensor:
-    """Coefficients (16, V, n) -> this rank's rows (16, V, n_ext/D) of their
-    coset evaluations (all n_ext with no mesh), at most `ext_chunk` columns
-    per NTT call."""
-    v = stack.shape[1]
-    if v <= ext_chunk:
-        return dom.coeff_to_extended_rows(stack)
-    return torch.cat(
-        [dom.coeff_to_extended_rows(stack[:, lo : lo + ext_chunk])
-         for lo in range(0, v, ext_chunk)],
-        dim=1,
-    )
+def _vars(exprs) -> list:
+    """The sorted (kind, index) columns that expressions query."""
+    return sorted({(v.kind, v.index) for v in queried_vars(exprs)})
 
 
-def _l2c_chunked(dom, cols: list, ext_chunk: int) -> torch.Tensor:
-    """Batched lagrange->coeff over a list of whole Lagrange columns,
-    `ext_chunk` per call: this rank's row block (16, B, n/D) of their
-    coefficients under a mesh (`Domain.lagrange_to_coeff_rows` of the
-    rank's block of each column, no gather), the whole without."""
-    parts = [
-        dom.lagrange_to_coeff_rows(torch.stack(
-            [dom.block(c) for c in cols[lo : lo + ext_chunk]], dim=1))
-        for lo in range(0, len(cols), ext_chunk)
-    ]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+class _Lift:
+    """Where `quotient_coeff` evaluates a block: on the whole extended
+    coset g·H_ext (`coset` None: this rank's n_ext/D rows of it), or on
+    its coset j, g·ω_ext^j·H, whose n points are the whole's rows
+    t = scale·i + j (this rank's n/D rows of it under a mesh).  On a
+    coset a rotation by r rows of the circuit is a roll by r (`rot` 1,
+    `scale` on the whole), the extended tables are the whole tables' rows
+    t ≡ j (mod scale), and each expression chunk lifts only the columns
+    it reads (`getter_for`), so a block's transient is a coset's share of
+    a chunk's columns."""
+
+    def __init__(self, dom, ext_chunk: int, coset: int | None = None):
+        self.dom = dom
+        self.ext_chunk = ext_chunk
+        self.coset = coset
+        self.rot = dom.n_ext // dom.n if coset is None else 1
+
+    def one(self, col: torch.Tensor) -> torch.Tensor:
+        """Coefficients (16, ..., n/D) -> their evaluations (this rank's
+        rows) on the whole coset or on coset j."""
+        if self.coset is None:
+            return self.dom.coeff_to_extended_rows(col)
+        return self.dom.coeff_to_coset_rows(col, self.coset)
+
+    def table(self, whole) -> torch.Tensor:
+        """This rank's rows of a whole extended table (host or device)."""
+        if self.coset is None:
+            return self.dom.ext_table_rows(whole)
+        return self.dom.coset_rows(whole, self.coset)
+
+    def many(self, cols: list) -> torch.Tensor:
+        """Coefficient columns -> (16, V, rows) evaluations, at most
+        `ext_chunk` columns per NTT call, written into one stack."""
+        out = None
+        for lo in range(0, len(cols), self.ext_chunk):
+            part = self.one(torch.stack(cols[lo : lo + self.ext_chunk], dim=1))
+            if lo == 0 and len(cols) <= self.ext_chunk:
+                return part
+            if out is None:
+                out = part.new_empty(part.shape[:1] + (len(cols),)
+                                     + part.shape[2:])
+            out[:, lo : lo + part.shape[1]] = part
+            del part
+        return out
+
+    def getter(self, coeff: dict, vars_: list):
+        """get_col(kind, index) over the lifted columns `vars_`."""
+        ext = self.many([coeff[v] for v in vars_])
+        pos = {v: i for i, v in enumerate(vars_)}
+        return lambda kind, index: ext[:, pos[(kind, index)]]
+
+    def getter_for(self, coeff: dict, exprs: list):
+        """getter_for(sub) -> get_col for a chunk `sub` of `exprs`: on the
+        whole coset one lift of every column `exprs` reads (the block's
+        columns alive together), on a coset a lift of the chunk's own."""
+        if self.coset is not None:
+            return lambda sub: self.getter(coeff, _vars(sub))
+        whole = self.getter(coeff, _vars(exprs))
+        return lambda sub: whole
+
+
+def _l2c_chunked(dom, lag, pids: list, ext_chunk: int) -> torch.Tensor:
+    """Batched lagrange->coeff of the whole Lagrange columns `lag[pid]`,
+    `ext_chunk` per call, written into one stack (16, B, n/D): this rank's
+    row block of their coefficients under a mesh
+    (`Domain.lagrange_to_coeff_rows` of the rank's block of each column,
+    no gather), the whole without.  Only a chunk of the Lagrange columns
+    is on the device at a time (`lag` may fetch them from the host)."""
+    out = None
+    for lo in range(0, len(pids), ext_chunk):
+        part = dom.lagrange_to_coeff_rows(torch.stack(
+            [dom.block(lag[pid]) for pid in pids[lo : lo + ext_chunk]], dim=1))
+        if lo == 0 and len(pids) <= ext_chunk:
+            return part
+        if out is None:
+            out = part.new_empty(part.shape[:1] + (len(pids),)
+                                 + part.shape[2:])
+        out[:, lo : lo + part.shape[1]] = part
+        del part
+    return out
 
 
 def _fold(constraints: list, w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -237,20 +308,21 @@ def _theta_powers(th: torch.Tensor, count: int) -> list:
     return pows
 
 
-def _compress_exprs_chunked(exprs, th, get_col, scale: int, rows: int,
+def _compress_exprs_chunked(exprs, th, getter_for, scale: int, rows: int,
                             roll: _Roll, chunk: int = 8) -> torch.Tensor:
     """Σ_i θ^i·expr_i on the extended domain (`rows` of it), `chunk`
-    expressions at once."""
+    expressions at once, each chunk's columns from `getter_for(chunk)`."""
     B = len(exprs)
     if B == 1:
-        return _eval_exprs_on(exprs, get_col, scale, {}, roll)[0]
+        return _eval_exprs_on(exprs, getter_for(exprs), scale, {}, roll)[0]
     pows = _theta_powers(th, B)
     acc = None
     for lo in range(0, B, chunk):
         sub = exprs[lo : lo + chunk]
-        vals = _eval_exprs_on(sub, get_col, scale, {}, roll)
+        vals = _eval_exprs_on(sub, getter_for(sub), scale, {}, roll)
         w = torch.stack([pows[lo + j] for j in range(len(sub))], dim=1)
         part = _fold(vals, w, rows)
+        del vals
         acc = part if acc is None else FP.add(acc, part)
     return acc
 
@@ -258,35 +330,29 @@ def _compress_exprs_chunked(exprs, th, get_col, scale: int, rows: int,
 def _gate_blocks(cs, slab: int):
     """[(exprs, sorted queried (kind, index) list)] per gate slab."""
     all_polys = [p for g in cs.gates for p in g.polys]
-    out = []
-    for lo in range(0, len(all_polys), slab):
-        exprs = all_polys[lo : lo + slab]
-        vars_ = sorted({(v.kind, v.index) for v in queried_vars(exprs)})
-        out.append((exprs, vars_))
-    return out
+    return [(all_polys[lo : lo + slab], _vars(all_polys[lo : lo + slab]))
+            for lo in range(0, len(all_polys), slab)]
 
 
-def _lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_, astack, tables,
-                 theta, beta, gamma, w, roll: _Roll):
-    """The five plookup rules of one lookup, y-weighted, on the rows of
+def _lookup_fold(lk, li, lift: _Lift, coeff, tables, theta, beta, gamma, w,
+                 roll: _Roll):
+    """The five plookup rules of lookup `li`, y-weighted, on the rows of
     `tables` (16, 3, rows)."""
     rows = tables.shape[-1]
-    pos = {v: i for i, v in enumerate(vars_)}
-    qext = _lift_chunked(dom, qstack, ext_chunk)
-    aext = _lift_chunked(dom, astack, ext_chunk)
+    scale = lift.rot
+    getter_for = lift.getter_for(coeff, lk.inputs + lk.tables)
+    aext = lift.many([coeff[("la", li)], coeff[("ls", li)],
+                      coeff[("lz", li)]])
     l0, l_last, active = tables[:, 0], tables[:, 1], tables[:, 2]
-
-    def get_col(kind, index):
-        return qext[:, pos[(kind, index)]]
-
-    a_ext = _compress_exprs_chunked(lk.inputs, theta, get_col, scale, rows,
+    a_ext = _compress_exprs_chunked(lk.inputs, theta, getter_for, scale, rows,
                                     roll)
-    s_ext = _compress_exprs_chunked(lk.tables, theta, get_col, scale, rows,
+    s_ext = _compress_exprs_chunked(lk.tables, theta, getter_for, scale, rows,
                                     roll)
+    del getter_for
     ap, sp, zl = aext[:, 0], aext[:, 1], aext[:, 2]
     zl_next = roll(zl, scale)
     ap_prev = roll(ap, -scale)
-    one = FP.ones((rows,), qstack.device)
+    one = FP.ones((rows,), tables.device)
     constraints = [
         FP.mul(l0, FP.sub(zl, one)),
         FP.mul(l_last, FP.sub(FP.mul(zl, zl), zl)),
@@ -303,18 +369,17 @@ def _lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_, astack, tables,
     return _fold(constraints, w, rows)
 
 
-def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
-                beta, w, roll: _Roll):
-    """The LogUp rules of one range lookup, y-weighted, on the rows of
+def _range_fold(rl, ri, lift: _Lift, coeff, tables, beta, w, roll: _Roll):
+    """The LogUp rules of range lookup `ri`, y-weighted, on the rows of
     `tables` (16, 3, rows), in the verifier's order [l0·z, l_last·z,
-    z-diff, batch_0 … batch_{B-1}, tail].  astack holds m, h_T, z, h_0 …
-    h_{B-1} coefficients."""
+    z-diff, batch_0 … batch_{B-1}, tail], from the coefficients of m,
+    h_T, z, h_0 … h_{B-1}."""
     rows = tables.shape[-1]
-    dev = qstack.device
-    pos = {v: i for i, v in enumerate(vars_)}
+    scale = lift.rot
     batches = rl.batches()
     nb = len(batches)
-    aext = _lift_chunked(dom, astack, ext_chunk)
+    aext = lift.many([coeff[("rm", ri)], coeff[("rt", ri)], coeff[("rz", ri)]]
+                     + [coeff[("rh", ri, b)] for b in range(nb)])
     l0, l_last, active = tables[:, 0], tables[:, 1], tables[:, 2]
     m_ext, ht_ext, z = aext[:, 0], aext[:, 1], aext[:, 2]
     h_exts = [aext[:, 3 + b] for b in range(nb)]
@@ -330,21 +395,15 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
         ],
         w[:, 0:3], rows,
     )
-    one = FP.ones((rows,), dev)
+    one = FP.ones((rows,), tables.device)
     j0 = 0
     for b, batch in enumerate(batches):
         exprs = rl.inputs[j0 : j0 + len(batch)]
         j0 += len(batch)
-        bvars = sorted({(v.kind, v.index) for v in queried_vars(exprs)})
-        bpos = {v: i for i, v in enumerate(bvars)}
-        qext = _lift_chunked(dom, qstack[:, [pos[v] for v in bvars]],
-                             ext_chunk)
-
-        def get_col(kind, index, qext=qext, bpos=bpos):
-            return qext[:, bpos[(kind, index)]]
-
-        vals = _eval_exprs_on(exprs, get_col, scale, {}, roll)
+        vals = _eval_exprs_on(exprs, lift.getter(coeff, _vars(exprs)), scale,
+                              {}, roll)
         ds = [FP.add(v, beta) for v in vals]
+        del vals
         prod_all = ds[0]
         for dd in ds[1:]:
             prod_all = FP.mul(prod_all, dd)
@@ -360,21 +419,47 @@ def _range_fold(rl, dom, scale, ext_chunk, qstack, vars_, astack, tables,
             excl = term if excl is None else FP.add(excl, term)
         c = FP.sub(FP.mul(h_exts[b], prod_all), excl)
         acc = FP.add(acc, FP.mul(c, w[:, 3 + b]))
-    tvars = sorted({(v.kind, v.index) for v in queried_vars([rl.table])})
-    t_pos = {v: i for i, v in enumerate(tvars)}
-    qext = _lift_chunked(dom, qstack[:, [pos[v] for v in tvars]], ext_chunk)
-
-    def get_t(kind, index):
-        return qext[:, t_pos[(kind, index)]]
-
-    t_ext = _eval_exprs_on([rl.table], get_t, scale, {}, roll)[0]
+    t_ext = _eval_exprs_on([rl.table], lift.getter(coeff, _vars([rl.table])),
+                           scale, {}, roll)[0]
     c = FP.sub(FP.mul(ht_ext, FP.add(t_ext, beta)), m_ext)
     return FP.add(acc, FP.mul(c, w[:, 3 + nb]))
 
 
+def _widest_block(cs, gate_slab: int) -> int:
+    """The most coefficient columns one block of `quotient_coeff` lifts
+    together to the whole extended coset: a gate slab's, the permutation's
+    (its columns, their sigmas and z), a lookup's inputs and tables with
+    its three columns, a LogUp argument's inputs and table with its own."""
+    widths = [len(v) for _, v in _gate_blocks(cs, gate_slab)]
+    perm = cs.permutation_columns()
+    if perm:
+        widths.append(2 * len(perm) + 1)
+    widths += [len(_vars(lk.inputs + lk.tables)) + 3 for lk in cs.lookups]
+    widths += [len(_vars(rl.inputs + [rl.table])) + 3 + len(rl.batches())
+               for rl in cs.range_lookups]
+    return max(widths, default=0)
+
+
+def _lift_whole(cs, dom, gate_slab: int, mesh) -> bool:
+    """Whether `quotient_coeff` lifts its blocks to the whole extended
+    coset: where twice the widest block's lifted columns (its expressions'
+    temporaries are of the same order) fit in the device's free memory,
+    always where none is observed (the CPU).  Under a mesh on the card,
+    every rank takes rank 0's choice, so that their halo exchanges pair."""
+    rows = dom.n_ext // (1 if mesh is None else mesh.size)
+    need = 2 * _widest_block(cs, gate_slab) * N_LIMBS * 4 * rows
+    free = free_bytes(dom.device)
+    whole = free is None or need <= free
+    if mesh is not None and dom.device.type == "cuda":
+        whole = bool(mesh.broadcast_ints(
+            [int(whole)] if mesh.rank == 0 else None, 1, n_bytes=1)[0])
+    return whole
+
+
 def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
                    perm_cols: list, ext_chunk: int = EXT_CHUNK,
-                   gate_slab: int = GATE_SLAB, on_folded=None) -> torch.Tensor:
+                   gate_slab: int = GATE_SLAB,
+                   on_folded=None) -> torch.Tensor:
     """Phase 5 of `create_proof`: the quotient's coefficients (16, n_ext),
     whole on every rank, from the coefficient columns `coeff` (pid -> this
     rank's row block (16, n/D) under a mesh context, the whole (16, n)
@@ -383,36 +468,35 @@ def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
     Constraint blocks (gate slabs, the permutation, each lookup, each LogUp
     argument) take their columns in the coefficient domain and lift them to
     the extended coset themselves, so at most one block's extended columns
-    are alive at a time.  Under a mesh context each rank lifts and holds
-    only its n_ext/D rows of every extended column and table
-    (`Domain.coeff_to_extended_rows`, `*_rows`), every rotation is a halo
-    exchange (`_Roll`), and the only gather is of the quotient's
-    coefficients after the inverse transform (`extended_rows_to_coeff`),
-    as GSPMD keeps the JAX prover's quotient phase on row blocks
-    (`tinyram_tpu/plonk/prover.py:577-592`).  With no mesh every block is
-    the whole column.  `on_folded(acc)` is called with the folded
-    constraints (this rank's rows) before the division by Z_H."""
+    are alive at a time.  Where the widest block's whole lift does not fit
+    in the device's free memory (`_lift_whole`: config 4's `prog` lookup
+    would take ~195 GiB), every block is evaluated on one coset
+    g·ω_ext^j·H of the extended domain at a time (`_Lift`), and the folded
+    cosets are interleaved into the extended domain's order
+    (t = scale·i + j): the same values, with a block's transient cut by
+    the scale (4× at degree 4) and each expression chunk's columns lifted
+    alone.  Under a mesh context each rank lifts and holds
+    only its rows of every extended column and table
+    (`Domain.coeff_to_extended_rows` or `coeff_to_coset_rows`,
+    `ext_table_rows` or `coset_rows`),
+    every rotation is a halo exchange (`_Roll`), and the only gather is of
+    the quotient's coefficients after the inverse transform
+    (`extended_rows_to_coeff`), as GSPMD keeps the JAX prover's quotient
+    phase on row blocks (`tinyram_tpu/plonk/prover.py:577-592`).  With no
+    mesh every block is the whole column.  `on_folded(acc)` is called with
+    the folded constraints (this rank's rows) before the division by
+    Z_H."""
     from ..shard.context import current_mesh
 
     theta, beta, gamma, y = challenges
     dev = dom.device
-    n = dom.n
-    scale = dom.n_ext // n
+    scale = dom.n_ext // dom.n
     roll = _Roll(current_mesh())
 
     def const(v: int) -> torch.Tensor:
         return FP.const(v, 1, dev)  # (16, 1)
 
     theta_d, beta_d, gamma_d = const(theta), const(beta), const(gamma)
-    l0_ext = dom.l0_evals_ext_rows()
-    rows = l0_ext.shape[-1]
-    one_ext = FP.ones((rows,), dev)
-    # usable-rows selectors: l_last = l_u; active = 1 − Σ_{i≥u} l_i
-    l_last_ext = dom.lagrange_sum_ext_rows((u,))
-    active_ext = FP.sub(one_ext,
-                        dom.lagrange_sum_ext_rows(tuple(range(u, n))))
-    tables3 = torch.stack([l0_ext, l_last_ext, active_ext], dim=1)
-
     all_polys = [p for g in cs.gates for p in g.polys]
     K = (
         len(all_polys)
@@ -421,81 +505,83 @@ def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
         + sum(4 + len(rl.batches()) for rl in cs.range_lookups)
     )
     y_pows = [pow(y, K - 1 - i, P) for i in range(K)]
-    fold_state = {"acc": None, "i": 0}
+    # usable-rows selectors: l_last = l_u; active = 1 − Σ_{i≥u} l_i
+    whole_tables = (dom.l0_evals_ext(), dom.lagrange_sum_ext((u,)),
+                    dom.lagrange_sum_ext(tuple(range(u, dom.n))))
 
-    def _take_w(count: int) -> torch.Tensor:
-        i0 = fold_state["i"]
-        fold_state["i"] = i0 + count
-        return FP.encode(y_pows[i0 : i0 + count], device=dev)[:, :, None]
+    def fold(lift: _Lift) -> torch.Tensor:
+        """Every block's constraints, y-weighted and summed, on the rows
+        of `lift`."""
+        l0_ext, l_last_ext, blinding = (lift.table(t) for t in whole_tables)
+        rows = l0_ext.shape[-1]
+        one_ext = FP.ones((rows,), dev)
+        active_ext = FP.sub(one_ext, blinding)
+        tables3 = torch.stack([l0_ext, l_last_ext, active_ext], dim=1)
+        state = {"acc": None, "i": 0}
 
-    def _add_part(part: torch.Tensor):
-        fold_state["acc"] = (
-            part if fold_state["acc"] is None else FP.add(fold_state["acc"], part)
-        )
+        def take_w(count: int) -> torch.Tensor:
+            i0 = state["i"]
+            state["i"] = i0 + count
+            return FP.encode(y_pows[i0 : i0 + count], device=dev)[:, :, None]
 
-    for exprs, vars_ in _gate_blocks(cs, gate_slab):
-        pos = {v: i for i, v in enumerate(vars_)}
-        ext = _lift_chunked(
-            dom, torch.stack([coeff[v] for v in vars_], dim=1), ext_chunk
-        )
-        outs = _eval_exprs_on(
-            exprs, lambda kind, index: ext[:, pos[(kind, index)]], scale, {},
-            roll)
-        _add_part(_fold(outs, _take_w(len(exprs)), rows))
-        del ext, outs
-    if perm_cols:
-        ext_c: dict = {}  # filled in program order: the same on every rank
+        def add_part(part: torch.Tensor):
+            state["acc"] = (part if state["acc"] is None
+                            else FP.add(state["acc"], part))
 
-        def ext(pid):
-            if pid not in ext_c:
-                ext_c[pid] = dom.coeff_to_extended_rows(coeff[pid])
-            return ext_c[pid]
+        for exprs, vars_ in _gate_blocks(cs, gate_slab):
+            outs = _eval_exprs_on(exprs, lift.getter(coeff, vars_), lift.rot,
+                                  {}, roll)
+            add_part(_fold(outs, take_w(len(exprs)), rows))
+            del outs
+        if perm_cols:
+            ext_c: dict = {}  # filled in program order: the same on every rank
 
-        x_ext = dom.x_evals_ext_rows()
-        constraints = []
-        z = ext(("zperm",))
-        z_next = roll(z, scale)
-        constraints.append(FP.mul(l0_ext, FP.sub(z, one_ext)))
-        constraints.append(FP.mul(l_last_ext, FP.sub(FP.mul(z, z), z)))
-        d = delta()
-        # Z(ωX)·Π(v + β·σ_j + γ) − Z(X)·Π(v + β·δ^j·X + γ) = 0
-        left, right = z_next, z
-        for j, col in enumerate(perm_cols):
-            v = ext((col.kind, col.index))
-            dj = pow(d, j, P) * beta % P
-            left = FP.mul(
-                left, FP.add(FP.add(v, FP.mul(beta_d, ext(("sigma", j)))),
-                             gamma_d))
-            right = FP.mul(
-                right, FP.add(FP.add(v, FP.mul(const(dj), x_ext)), gamma_d))
-        constraints.append(FP.mul(active_ext, FP.sub(left, right)))
-        _add_part(_fold(constraints, _take_w(3), rows))
-    for li, lk in enumerate(cs.lookups):
-        vars_ = sorted(
-            {(v.kind, v.index) for v in queried_vars(lk.inputs + lk.tables)}
-        )
-        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
-        astack = torch.stack(
-            [coeff[("la", li)], coeff[("ls", li)], coeff[("lz", li)]], dim=1
-        )
-        _add_part(_lookup_fold(lk, dom, scale, ext_chunk, qstack, vars_,
-                               astack, tables3, theta_d, beta_d, gamma_d,
-                               _take_w(5), roll))
-    for ri, rl in enumerate(cs.range_lookups):
-        vars_ = sorted(
-            {(v.kind, v.index) for v in queried_vars(rl.inputs + [rl.table])}
-        )
-        qstack = torch.stack([coeff[v] for v in vars_], dim=1)
-        astack = torch.stack(
-            [coeff[("rm", ri)], coeff[("rt", ri)], coeff[("rz", ri)]]
-            + [coeff[("rh", ri, b)] for b in range(len(rl.batches()))],
-            dim=1,
-        )
-        _add_part(_range_fold(rl, dom, scale, ext_chunk, qstack, vars_,
-                              astack, tables3, beta_d,
-                              _take_w(4 + len(rl.batches())), roll))
-    assert fold_state["i"] == K, (fold_state["i"], K)
-    acc = fold_state["acc"]
+            def ext(pid):
+                if pid not in ext_c:
+                    ext_c[pid] = lift.one(coeff[pid])
+                return ext_c[pid]
+
+            x_ext = lift.table(dom.x_evals_ext())
+            constraints = []
+            z = ext(("zperm",))
+            z_next = roll(z, lift.rot)
+            constraints.append(FP.mul(l0_ext, FP.sub(z, one_ext)))
+            constraints.append(FP.mul(l_last_ext, FP.sub(FP.mul(z, z), z)))
+            d = delta()
+            # Z(ωX)·Π(v + β·σ_j + γ) − Z(X)·Π(v + β·δ^j·X + γ) = 0
+            left, right = z_next, z
+            for j, col in enumerate(perm_cols):
+                v = ext((col.kind, col.index))
+                dj = pow(d, j, P) * beta % P
+                left = FP.mul(
+                    left, FP.add(FP.add(v, FP.mul(beta_d, ext(("sigma", j)))),
+                                 gamma_d))
+                right = FP.mul(
+                    right, FP.add(FP.add(v, FP.mul(const(dj), x_ext)),
+                                  gamma_d))
+            constraints.append(FP.mul(active_ext, FP.sub(left, right)))
+            add_part(_fold(constraints, take_w(3), rows))
+            del ext_c, constraints, left, right
+        for li, lk in enumerate(cs.lookups):
+            add_part(_lookup_fold(lk, li, lift, coeff, tables3, theta_d,
+                                  beta_d, gamma_d, take_w(5), roll))
+        for ri, rl in enumerate(cs.range_lookups):
+            add_part(_range_fold(rl, ri, lift, coeff, tables3, beta_d,
+                                 take_w(4 + len(rl.batches())), roll))
+        assert state["i"] == K, (state["i"], K)
+        return state["acc"]
+
+    if _lift_whole(cs, dom, gate_slab, current_mesh()):
+        acc = fold(_Lift(dom, ext_chunk))
+    else:
+        acc = None
+        for j in range(scale):
+            part = fold(_Lift(dom, ext_chunk, j))
+            if acc is None:
+                acc = part.new_empty(part.shape[:-1]
+                                     + (part.shape[-1] * scale,))
+            acc.view(part.shape[:-1] + (part.shape[-1], scale))[..., j] = part
+            del part
     if on_folded is not None:
         on_folded(acc)
     return dom.extended_rows_to_coeff(dom.divide_by_vanishing(acc))
@@ -564,18 +650,59 @@ def create_proof(
     ext_chunk: int = EXT_CHUNK, gate_slab: int = GATE_SLAB,
     commit_chunk: int = COMMIT_CHUNK, phase_hook=None, mesh=None,
     ntt_method: str = "b2", msm_affine: bool = False,
+    eval_slab: int = EVAL_SLAB,
 ) -> bytes:
     """The proof of `asg` under `pk`.  `ntt_method` ("b2" or "mxu") and
     `msm_affine` pick the domain transforms' NTT and the commitments' MSM
-    bucket scan (`utils/algorithms.py`); every choice gives the same
-    bytes."""
+    bucket scan (`utils/algorithms.py`); every choice and every width
+    gives the same bytes."""
     with algorithms(ntt_method, msm_affine):
         return _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab,
-                             commit_chunk, phase_hook, mesh)
+                             commit_chunk, phase_hook, mesh, eval_slab)
+
+
+class _Lagrange(dict):
+    """The prover's whole Lagrange columns by pid, each returned on the
+    device.  The assignment's instance and advice columns and the key's
+    fixed ones are not kept here: `self[pid]` brings one to the device for
+    each use (`Assignment.fetch`; the key's may rest on the host,
+    `keygen(host=True)`), the advice with its blinding tail (`tails[:, i]`,
+    rows u…n−1) written in, so a witness stored on the host never rests on
+    the card whole.  `rest()` moves the columns kept here to pinned host
+    memory, from where each use fetches them too."""
+
+    def __init__(self, asg: Assignment, pk: ProvingKey, dev, u: int, tails):
+        super().__init__()
+        self.asg, self.pk, self.dev = asg, pk, dev
+        self.u, self.tails = u, tails
+
+    def __getitem__(self, pid):
+        col = dict.get(self, pid)
+        if col is None:
+            return self.fetch(pid)
+        return col.to(self.dev, non_blocking=True)
+
+    def fetch(self, pid) -> torch.Tensor:
+        if len(pid) != 2 or pid[0] not in ("instance", "advice", "fixed"):
+            raise KeyError(pid)
+        kind, index = pid
+        if kind == "fixed":
+            return self.pk.fixed_lag[index].to(self.dev, non_blocking=True)
+        stored = getattr(self.asg, kind)[index]
+        col = self.asg.fetch(kind, index).to(self.dev)
+        if kind == "advice" and self.tails is not None:
+            if col is stored:  # a device store: keep the assignment as it is
+                col = col.clone()
+            col[:, self.u:] = self.tails[:, index]
+        return col
+
+    def rest(self) -> None:
+        for pid, col in list(self.items()):
+            dict.__setitem__(self, pid, pinned(col))
 
 
 def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
-                  phase_hook, mesh) -> bytes:
+                  phase_hook, mesh, eval_slab=EVAL_SLAB) -> bytes:
     if mesh is not None:
         # sharded mode: every rank runs this prover on the same inputs
         # under the mesh context (domain transforms and MSMs shard), with
@@ -586,7 +713,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         with mesh_context(mesh):
             return _create_proof(srs, pk, asg, tw, MeshRng(mesh, rng),
                                  ext_chunk, gate_slab, commit_chunk,
-                                 phase_hook, None)
+                                 phase_hook, None, eval_slab)
     cs = pk.vk.cs
     dom = pk.domain
     dev = dom.device
@@ -613,19 +740,13 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             return many(P, count)
         return [rng.randbelow(P) for _ in range(count)]
 
-    advice = [a.to(dev) for a in asg.advice]
-    instance = [a.to(dev) for a in asg.instance]
+    tails = None
     if bf > 0 and cs.num_advice:
         tail = n - u
-        enc = FP.encode(_rand_tail(cs.num_advice * tail), device=dev).reshape(
-            16, cs.num_advice, tail
-        )
-        for i in range(cs.num_advice):
-            col = advice[i].clone()
-            col[:, u:] = enc[:, i]
-            advice[i] = col
+        tails = FP.encode(_rand_tail(cs.num_advice * tail),
+                          device=dev).reshape(16, cs.num_advice, tail)
 
-    lag: dict[tuple, torch.Tensor] = {}
+    lag = _Lagrange(asg, pk, dev, u, tails)
     coeff: dict[tuple, torch.Tensor] = {}
     blinds: dict[tuple, int] = {}  # W-blinds; 0 for public polys
 
@@ -637,18 +758,17 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     # mesh (the key's whole columns cut here, no collective), the whole
     # column with none; `lag` holds whole Lagrange columns
     for i in range(cs.num_fixed):
-        lag[("fixed", i)] = pk.fixed_lag[i]
         coeff[("fixed", i)] = dom.block(pk.fixed_coeff[i])
     for j in range(len(pk.sigma_lag)):
         lag[("sigma", j)] = pk.sigma_lag[j]
         coeff[("sigma", j)] = dom.block(pk.sigma_coeff[j])
     # (16, B, n/D) under a mesh
-    coeff_stack = _l2c_chunked(dom, instance + advice, ext_chunk)
+    coeff_stack = _l2c_chunked(
+        dom, lag, [("instance", i) for i in range(cs.num_instance)]
+        + [("advice", i) for i in range(cs.num_advice)], ext_chunk)
     for i in range(cs.num_instance):
-        lag[("instance", i)] = instance[i]
         coeff[("instance", i)] = coeff_stack[:, i]
     for i in range(cs.num_advice):
-        lag[("advice", i)] = advice[i]
         coeff[("advice", i)] = coeff_stack[:, cs.num_instance + i]
 
     phases = _Phases(dev, phase_hook)
@@ -663,6 +783,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         tw.common_point(all_comms[i])
     for i in range(cs.num_advice):
         tw.write_point(all_comms[cs.num_instance + i])
+    del coeff_stack  # its columns live on in `coeff`
 
     phases.end("commit instance+advice")
     # 2. lookups: compress, permute, commit A'/S'
@@ -693,6 +814,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     if lookup_data:
         all_pairs = torch.stack([x for pair in lookup_data for x in pair], dim=1)
         host_pairs = _host_limbs(FP.from_mont(all_pairs[:, :, :u].contiguous()))
+        del all_pairs
     for li, (a_lag, s_lag) in enumerate(lookup_data):
         # permute over the usable prefix only; the blinding tail is random
         ha = host_pairs[:, 2 * li]
@@ -715,10 +837,11 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             _mont_table(FP, tail_vals[n - u:]), device=dev)], dim=1)
         lag[("la", li)] = ap_lag
         lag[("ls", li)] = sp_lag
-        permuted.append(ap_lag)
-        permuted.append(sp_lag)
+        permuted += [("la", li), ("ls", li)]
+    if lookup_data:  # the last lookup's temporaries (columns of n)
+        del a_lag, s_lag, ap_body, sp_body, ap_lag, sp_lag
     if permuted:
-        perm_coeff = _l2c_chunked(dom, permuted, ext_chunk)
+        perm_coeff = _l2c_chunked(dom, lag, permuted, ext_chunk)
         perm_comms = cm(
             [perm_coeff[:, i] for i in range(perm_coeff.shape[1])],
             [_blind(("la", i // 2) if i % 2 == 0 else ("ls", i // 2))
@@ -729,6 +852,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             coeff[("ls", li)] = perm_coeff[:, 2 * li + 1]
             tw.write_point(perm_comms[2 * li])
             tw.write_point(perm_comms[2 * li + 1])
+        del perm_coeff
 
     # 2b. range lookups (LogUp): multiplicity columns committed before β;
     # m[r] counts the usable-row inputs equal to t(r), on the first table
@@ -744,10 +868,12 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
                 )
             t_val = _eval_exprs_on([rl.table], col_lag, 1, {})[0]
             rl_stacks.append((torch.stack(in_vals, dim=1), t_val))
+            del in_vals
         all_cols = torch.cat(
             [torch.cat([s, t[:, None]], dim=1) for s, t in rl_stacks], dim=1
         )
         host_cols = _host_limbs(FP.from_mont(all_cols[:, :, :u].contiguous()))
+        del all_cols
         m_lags = []
         off = 0
         for rl, (in_stack, t_lag) in zip(cs.range_lookups, rl_stacks):
@@ -785,6 +911,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
                 m_lag[:, u:] = FP.encode(_rand_tail(n - u), device=dev)
             m_lags.append(m_lag)
             range_data.append((in_stack, t_lag, m_lag))
+        del rl_stacks, host_cols
         m_coeff = dom.lagrange_to_coeff_rows(
             dom.block(torch.stack(m_lags, dim=1)))
         m_comms = cm(
@@ -795,6 +922,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             lag[("rm", ri)] = m_lags[ri]
             coeff[("rm", ri)] = m_coeff[:, ri]
             tw.write_point(m_comms[ri])
+        del m_coeff, m_lags, m_lag
 
     phases.end("lookup permute+commit")
     beta = tw.challenge()
@@ -838,9 +966,11 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
                     FP.add(lag[("ls", li)], gamma_d))
              for li in range(len(cs.lookups))], dim=1)
         ones_b = FP.ones((1, n), dev)
+        del lookup_data  # the compressed inputs and tables: read only here
         nums = torch.where(row_mask, nums, ones_b)
         dens = torch.where(row_mask, dens, ones_b)
         zs = _grand_product(nums, dens)
+        del nums, dens
         if bf > 0:
             B = zs.shape[1]
             zs[:, :, u + 1 :] = FP.encode(
@@ -855,6 +985,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             lag[("lz", li)] = zs[:, li]
             coeff[("lz", li)] = z_coeff[:, li]
             tw.write_point(z_comms[li])
+        del zs, z_coeff
 
     # 4b. LogUp helpers + running sums: h_b = Σ_{j∈batch b} 1/(β+f_j),
     # h_T = m/(β+t), z = exclusive prefix sum of (Σ_b h_b − h_T) over
@@ -864,13 +995,18 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         for in_stack, t_lag, _ in range_data:
             den_list.append(FP.add(in_stack, beta_d[:, :, None]))
             den_list.append(FP.add(t_lag, beta_d)[:, None])
-        invs = FP.inv(torch.cat(den_list, dim=1))
+        # the inputs are read only through their denominators from here
+        del in_stack
+        range_data = [(s.shape[1], t, m) for s, t, m in range_data]
+        dens = torch.cat(den_list, dim=1)
+        del den_list
+        invs = FP.inv(dens)
+        del dens
         pids_order = []  # canonical commit order: per rl h_0.., h_T, z
         cols = []
         off = 0
-        for ri, (in_stack, t_lag, m_lag) in enumerate(range_data):
+        for ri, (nin, t_lag, m_lag) in enumerate(range_data):
             rl = cs.range_lookups[ri]
-            nin = in_stack.shape[1]
             inv_in = invs[:, off : off + nin]
             inv_t = invs[:, off + nin]
             off += nin + 1
@@ -897,15 +1033,24 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             cols.append(h_t)
             pids_order.append(("rz", ri))
             cols.append(z)
-        r_coeff = _l2c_chunked(dom, cols, ext_chunk)
+        del invs, inv_in, inv_t, range_data, t_lag, m_lag, h_lags, h, h_t
+        del contrib, z
+        for pid, col in zip(pids_order, cols):
+            lag[pid] = col
+        r_coeff = _l2c_chunked(dom, lag, pids_order, ext_chunk)
         r_comms = cm(
             [r_coeff[:, i] for i in range(r_coeff.shape[1])],
             [_blind(pid) for pid in pids_order],
         )
         for i, pid in enumerate(pids_order):
-            lag[pid] = cols[i]
             coeff[pid] = r_coeff[:, i]
             tw.write_point(r_comms[i])
+        del r_coeff, cols
+    if asg.host:
+        # a host-stored witness: the Lagrange columns made in phases 2-4
+        # rest beside it until the multiopen folds them, leaving the card
+        # to the coefficients and the quotient's blocks
+        lag.rest()
 
     phases.end("grand products")
     y = tw.challenge()
@@ -929,6 +1074,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         coeff[("q", c)] = q_chunks[:, c]
         lag[("q", c)] = q_lag[:, c]
         tw.write_point(q_comms[c])
+    del q_coeff_full, q_whole, q_lag, q_chunks
 
     phases.end("quotient+commit")
     x = tw.challenge()
@@ -947,10 +1093,11 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
         by_rot.setdefault(slot.rotation, []).append(slot)
     for rot, group in by_rot.items():
         zd = FP.encode([points[rot]], device=dev)[:, 0]
-        for lo in range(0, len(group), EVAL_SLAB):
-            chunk = group[lo : lo + EVAL_SLAB]
+        for lo in range(0, len(group), eval_slab):
+            chunk = group[lo : lo + eval_slab]
             stack_c = torch.stack([coeff[s.pid] for s in chunk], dim=1)
             vals = FP.decode(eval_poly_rows(FP, stack_c, zd))
+            del stack_c
             for s, val in zip(chunk, vals):
                 evals[(s.pid, s.rotation)] = val
     for slot in slots:
@@ -958,21 +1105,27 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             tw.write_scalar(evals[(slot.pid, slot.rotation)])
 
     phases.end("evaluations")
-    # 7. multiopen (BDFG batch opening, one IPA)
+    # 7. multiopen (BDFG batch opening, one IPA); `coeff` and `lag` are
+    # dropped once folded, so the opening's MSMs run beside the key alone
     multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals, blinds,
-                    rng=rng, commit_chunk=commit_chunk)
+                    rng=rng, commit_chunk=commit_chunk, fold_slab=eval_slab,
+                    on_folded=lambda: (coeff.clear(), lag.clear()))
     phases.end("multiopen+ipa")
     return tw.finalize()
 
 
 def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
-                    blinds=None, rng=secrets, commit_chunk=COMMIT_CHUNK):
+                    blinds=None, rng=secrets, commit_chunk=COMMIT_CHUNK,
+                    fold_slab=EVAL_SLAB, on_folded=None):
     """Phase 7: the BDFG batch opening and its one IPA.  `coeff` holds
     this rank's row blocks under a mesh context (`create_proof`), `lag`
     whole Lagrange columns: each point's P is folded on both (its
-    coefficients a row block), Q's coefficients are the row block of the
+    coefficients a row block; `fold_slab` columns a stack), Q's
+    coefficients are the row block of the
     whole Q on H, its commitment and the w values come from the blocks,
-    and the opened T = Q + Σ s^j·P_j is gathered once for `open_poly`."""
+    and the opened T = Q + Σ s^j·P_j is gathered once for `open_poly`.
+    `on_folded()` is called once every P is folded, the last read of
+    `coeff` and `lag`."""
     blinds = blinds or {}
     dev = dom.device
     n = dom.n
@@ -997,13 +1150,16 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
             vi = vi * v % P
         p_lag = None
         p_coeff = None
-        for lo in range(0, len(group), FOLD_SLAB):
-            chunk = group[lo : lo + FOLD_SLAB]
-            w_dev = FP.encode(weights[lo : lo + FOLD_SLAB], device=dev)[:, :, None]
+        for lo in range(0, len(group), fold_slab):
+            chunk = group[lo : lo + fold_slab]
+            w_dev = FP.encode(weights[lo : lo + fold_slab],
+                              device=dev)[:, :, None]
             lag_stack = torch.stack([lag[s.pid] for s in chunk], dim=1)
             part_lag = tree_sum(FP, FP.mul(lag_stack, w_dev), axis=1)
+            del lag_stack
             coeff_stack = torch.stack([coeff[s.pid] for s in chunk], dim=1)
             part_coeff = tree_sum(FP, FP.mul(coeff_stack, w_dev), axis=1)
+            del coeff_stack
             p_lag = part_lag if p_lag is None else FP.add(p_lag, part_lag)
             p_coeff = (
                 part_coeff if p_coeff is None else FP.add(p_coeff, part_coeff)
@@ -1012,6 +1168,8 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
             w * blinds.get(s.pid, 0) for w, s in zip(weights, group)
         ) % P
         p_group.append((rot, p_lag, p_coeff, r_val, p_blind))
+    if on_folded is not None:
+        on_folded()
 
     uj = 1
     for rot, p_lag, p_coeff, r_val, _ in p_group:

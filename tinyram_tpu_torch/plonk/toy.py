@@ -42,9 +42,10 @@ class ToyCircuit:
     def usable(self) -> int:
         return self.cs.usable_rows(N)
 
-    def fixed_assignment(self, device=CUDA) -> Assignment:
-        """The fixed columns alone: what `keygen` takes."""
-        asg = Assignment(self.cs, N, device)
+    def fixed_assignment(self, device=CUDA, host: bool = False) -> Assignment:
+        """The fixed columns alone: what `keygen` takes (`host`: see
+        `Assignment`)."""
+        asg = Assignment(self.cs, N, device, host=host)
         u = self.usable
         asg.set(self.q, [1] * u + [0] * (N - u))
         asg.set(self.t_rng, list(range(16)) + [0] * (N - 16))
@@ -57,11 +58,11 @@ class ToyCircuit:
     def public_values(self, xs: list[int]) -> list[int]:
         return [v * v % P for v in xs] + [0] * (N - len(xs))
 
-    def assignment(self, device=CUDA) -> Assignment:
+    def assignment(self, device=CUDA, host: bool = False) -> Assignment:
         """The full assignment: x = `witness_values()`, y = x², and y in
         the public column."""
         xs = self.witness_values()
-        asg = self.fixed_assignment(device)
+        asg = self.fixed_assignment(device, host)
         ys = self.public_values(xs)
         asg.set(self.x, xs + [0] * (N - len(xs)))
         asg.set(self.y, ys)

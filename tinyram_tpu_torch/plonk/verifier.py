@@ -17,7 +17,8 @@ import torch
 from ..curve import host_jacobian
 from ..field.field import FP
 from ..ipa import SRS
-from ..ipa.ipa import commit_many, verify_open, verify_open_deferred
+from ..ipa.ipa import (COMMIT_CHUNK, commit_many, verify_open,
+                       verify_open_deferred)
 from ..poly.domain import Domain, domain_cache
 from ..poly.ntt import eval_poly
 from ..transcript import TranscriptReader
@@ -49,12 +50,15 @@ def _host_eval_expr(expr, evals: dict, x_rotated):
 
 
 def verify_proof(
-    srs: SRS, vk: VerifyingKey, instances: list, proof: bytes
+    srs: SRS, vk: VerifyingKey, instances: list, proof: bytes,
+    commit_chunk: int = COMMIT_CHUNK,
 ) -> bool:
     """True iff ``proof`` is valid for ``instances`` (value lists or
-    (16, n) limb arrays, one per instance column)."""
+    (16, n) limb arrays, one per instance column).  ``commit_chunk``:
+    instance columns per transform and MSM pass of their commitments, as
+    in `create_proof` (any width gives the same verdict)."""
     try:
-        return _verify(srs, vk, instances, proof)
+        return _verify(srs, vk, instances, proof, commit_chunk=commit_chunk)
     except (ValueError, AssertionError):
         return False
 
@@ -84,7 +88,8 @@ def _instance_values(inst, n: int):
     return vals
 
 
-def _instance_commitments(srs: SRS, dom: Domain, columns: list):
+def _instance_commitments(srs: SRS, dom: Domain, columns: list,
+                          commit_chunk: int = COMMIT_CHUNK):
     h = hashlib.sha256()
     h.update(f"{srs.k}:{srs.device}".encode())
     for col in columns:
@@ -96,14 +101,25 @@ def _instance_commitments(srs: SRS, dom: Domain, columns: list):
             h.update(b"ints" + repr(col).encode())
     key = h.hexdigest()
     if key not in _INSTANCE_COMM_CACHE:
-        inst_lag = [
-            col.to(srs.device) if isinstance(col, torch.Tensor)
-            else FP.encode(col, device=srs.device)
-            for col in columns
-        ]
-        inst_stack = dom.lagrange_to_coeff(torch.stack(inst_lag, dim=1))
-        inst_coeff = [inst_stack[:, i] for i in range(len(inst_lag))]
-        _INSTANCE_COMM_CACHE[key] = (inst_coeff, commit_many(srs, inst_coeff))
+        # encoded and transformed `commit_chunk` columns at a time into one
+        # stack: only a chunk's Lagrange columns are alive beside it
+        inst_stack = None
+        for lo in range(0, len(columns), commit_chunk):
+            lag = torch.stack([
+                col.to(srs.device) if isinstance(col, torch.Tensor)
+                else FP.encode(col, device=srs.device)
+                for col in columns[lo : lo + commit_chunk]], dim=1)
+            part = dom.lagrange_to_coeff(lag)
+            del lag
+            if inst_stack is None:
+                inst_stack = part.new_empty((part.shape[0], len(columns))
+                                            + tuple(part.shape[2:]))
+            inst_stack[:, lo : lo + part.shape[1]] = part
+            del part
+        inst_coeff = [inst_stack[:, i] for i in range(len(columns))]
+        _INSTANCE_COMM_CACHE[key] = (
+            inst_coeff, commit_many(srs, inst_coeff,
+                                    commit_chunk=commit_chunk))
         while len(_INSTANCE_COMM_CACHE) > 64:
             _INSTANCE_COMM_CACHE.pop(next(iter(_INSTANCE_COMM_CACHE)))
     return _INSTANCE_COMM_CACHE[key]
@@ -111,7 +127,7 @@ def _instance_commitments(srs: SRS, dom: Domain, columns: list):
 
 def _verify(
     srs: SRS, vk: VerifyingKey, instances: list, proof: bytes,
-    defer: list | None = None,
+    defer: list | None = None, commit_chunk: int = COMMIT_CHUNK,
 ) -> bool:
     cs = vk.cs
     n = 1 << vk.k
@@ -125,7 +141,8 @@ def _verify(
     columns = [_instance_values(inst, n) for inst in instances]
     assert len(columns) == cs.num_instance
     if columns:
-        inst_coeff, inst_comms = _instance_commitments(srs, dom, columns)
+        inst_coeff, inst_comms = _instance_commitments(srs, dom, columns,
+                                                       commit_chunk)
         for c in inst_comms:
             tr.common_point(c)
     else:

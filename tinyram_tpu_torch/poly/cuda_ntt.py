@@ -169,11 +169,17 @@ def four_step(x, field: Field, inverse: bool, scale=None,
         ),
         x.device,
     )
+    # each level's copies are released as soon as the next is made: a
+    # transform holds ~4 copies of its input at its peak, not one a level
+    # (config 4's columns are 128 MiB each)
     y = base(xt.contiguous(), field, inverse, cross, None)  # [r, i2, k1]
+    del xt
     yt = y.reshape(N_LIMBS, rows, b, a).transpose(2, 3).reshape(
         N_LIMBS, rows * a, b
-    )
-    z = four_step(yt.contiguous(), field, inverse, scale, log_s_max, base)
+    ).contiguous()
+    del y
+    z = four_step(yt, field, inverse, scale, log_s_max, base)
+    del yt
     # z[r, k1, k2] holds output index k = k1 + a·k2
     return z.reshape(N_LIMBS, rows, a, b).transpose(2, 3).reshape(
         N_LIMBS, rows, S

@@ -13,7 +13,10 @@ rank holds its block of every coefficient and extended column, as the JAX
 package's shard_map out_specs leave it under GSPMD (`tinyram_tpu/shard/
 ntt.py:118-122`, `tinyram_tpu/plonk/prover.py:577-592`).  `block` and
 `gather` move a column between the two forms.  The extended tables have
-block forms (`*_rows`) cut from the cached whole tables.  With its
+block forms (`ext_table_rows`) cut from the cached whole tables.  One coset
+g·ω_ext^j·H of the extended domain, the whole's rows t ≡ j (mod n_ext/n),
+has its lift (`coeff_to_coset_rows`, a size-n transform) and its tables'
+rows (`coset_rows`), row blocks under a mesh as well.  With its
 `domain_cache`: one `Domain` per (field, k, extended k, device), so
 keygen, the key loader and the verifier share one domain and its cached
 tables.
@@ -172,6 +175,23 @@ class Domain:
                            offset=mesh.rank * block.shape[-1])
         return ntt_sharded(mesh, body, False, self.field, n=self.n_ext)
 
+    def coeff_to_coset_rows(self, block: torch.Tensor, j: int) -> torch.Tensor:
+        """This rank's row block (16, ..., n/D) of coefficients -> this
+        rank's row block (16, ..., n/D) of their evaluations on the coset
+        g·ω_ext^j·H (j < n_ext/n): rows t = (n_ext/n)·i + j of the whole
+        lift (`coeff_to_extended`), since g·ω_ext^t = (g·ω_ext^j)·ω^i.  A
+        size-n transform (`lagrange_to_coeff_rows`' forward twin) of the
+        coefficients scaled by (g·ω_ext^j)^i: a fraction n/n_ext of the
+        whole lift's output, and no zero pad."""
+        from ..shard.context import current_mesh
+
+        p = self.field.modulus
+        mesh = current_mesh()
+        offset = 0 if mesh is None else mesh.rank * block.shape[-1]
+        shift = self.g_coset * pow(self.omega_ext, j, p) % p
+        return self._ntt_rows(coeff_scale(self.field, block, shift,
+                                          offset=offset), False)
+
     def extended_rows_to_coeff(self, block: torch.Tensor) -> torch.Tensor:
         """This rank's row block of evaluations on g·H_ext -> the whole
         coefficients (16, ..., n_ext) on every rank: the sharded inverse
@@ -286,28 +306,26 @@ class Domain:
 
     # ------------------------------------------------- row blocks of tables
 
-    def _rows(self, table) -> torch.Tensor:
-        """This rank's row block of a whole extended table (host or device)
-        on the domain's device; the whole table with no mesh."""
+    def ext_table_rows(self, table) -> torch.Tensor:
+        """This rank's row block of a whole extended table (host or device,
+        `l0_evals_ext`, `x_evals_ext`, `lagrange_sum_ext`) on the domain's
+        device; the whole table with no mesh."""
         from ..shard.context import current_mesh
 
         mesh = current_mesh()
+        if mesh is not None:
+            m = table.shape[-1] // mesh.size
+            table = table[..., mesh.rank * m:(mesh.rank + 1) * m]
         if isinstance(table, np.ndarray):
-            if mesh is not None:
-                m = self.n_ext // mesh.size
-                table = table[..., mesh.rank * m:(mesh.rank + 1) * m]
             return torch.as_tensor(np.ascontiguousarray(table),
                                    device=self.device)
-        return table if mesh is None else mesh.block(table).contiguous()
+        return table.contiguous()
 
-    def l0_evals_ext_rows(self) -> torch.Tensor:
-        return self._rows(self.l0_evals_ext())
-
-    def x_evals_ext_rows(self) -> torch.Tensor:
-        return self._rows(self.x_evals_ext())
-
-    def lagrange_sum_ext_rows(self, rows: tuple) -> torch.Tensor:
-        return self._rows(self.lagrange_sum_ext(rows))
+    def coset_rows(self, table, j: int) -> torch.Tensor:
+        """This rank's row block of a whole extended table's rows
+        t ≡ j (mod n_ext/n): the table on the coset g·ω_ext^j·H
+        (`coeff_to_coset_rows`)."""
+        return self.ext_table_rows(table[..., j :: self.n_ext // self.n])
 
     def lagrange_evals_host(self, x: int, indices) -> list[int]:
         """l_i(x) for a host point x (verifier side), exact Python ints."""

@@ -12,6 +12,7 @@ by kind (`shard/mesh.py`), and the peak device memory.  Used by
 
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 
@@ -22,6 +23,7 @@ from .. import kernels
 from ..curve.vesta import PointBatch, to_affine_host
 from ..ipa.ipa import COMMIT_CHUNK, pass_widths
 from ..ipa.srs import CACHE_DIR, setup
+from ..utils.device import memory_cap
 from ..utils.profiling import counters
 from .context import mesh_context
 from .mesh import Mesh
@@ -135,9 +137,12 @@ def gate_path(mesh: Mesh, x: np.ndarray) -> np.ndarray:
     return mesh.all_gather(out, -1).cpu().numpy()
 
 
-def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
+def toy_proof(mesh: Mesh, seed: int | None = None,
+              cap: int | None = None) -> dict:
     """The k = 6 toy circuit (`plonk/toy.py`) proved by
-    `create_proof(mesh=)`, under `SeededRng(seed)` (`secrets` when None).
+    `create_proof(mesh=)`, under `SeededRng(seed)` (`secrets` when None),
+    within `memory_cap(cap)` when `cap` is given (0: the quotient lifted
+    one coset at a time).
     Rank 0 runs the single-device `verify_proof` on it, the last rank
     checks that a changed public input is rejected (rank 0 does both on
     one rank).  Returns the proof bytes, the checks and the stats (with
@@ -152,8 +157,9 @@ def toy_proof(mesh: Mesh, seed: int | None = None) -> dict:
     pk = keygen(srs, toy.cs, toy.fixed_assignment(mesh.device))
     asg = toy.assignment(device=mesh.device)
     rng = secrets if seed is None else SeededRng(seed)
-    proof, stats = _proof_measured(mesh, lambda hook: create_proof(
-        srs, pk, asg, rng=rng, mesh=mesh, phase_hook=hook))
+    with contextlib.nullcontext() if cap is None else memory_cap(cap):
+        proof, stats = _proof_measured(mesh, lambda hook: create_proof(
+            srs, pk, asg, rng=rng, mesh=mesh, phase_hook=hook))
     good = toy.public_values(toy.witness_values())
     bad = [(good[0] + 1) % P] + good[1:]
     out = {"proof": proof, "stats": stats, "verified": None, "rejected": None}
@@ -366,8 +372,8 @@ def quotient_path(mesh: Mesh, cs, k: int, coeffs: dict, challenges: tuple,
     row block of the coefficient columns `coeffs` (pid -> (16, 2^k) limbs,
     whole on every rank) under the mesh, as `create_proof` feeds it: the
     quotient's coefficients, the collectives of the fold and of what
-    follows it, and the row counts of every lifted block and of the folded
-    one."""
+    follows it, and the row counts of every block lifted to the whole
+    extended domain and of the folded one."""
     from ..field.field import FP
     from ..plonk.prover import quotient_coeff
     from ..poly.domain import Domain

@@ -10,6 +10,7 @@ from __future__ import annotations
 import secrets
 
 from ..ipa import SRS, setup
+from ..ipa.ipa import COMMIT_CHUNK
 from ..plonk import Assignment, MockProver, create_proof, keygen, verify_proof
 from ..plonk.keygen import ProvingKey
 from ..utils.device import CUDA
@@ -31,9 +32,12 @@ class TinyRamCircuit:
         for name, arr in fixed_columns(self.tcs).items():
             asg.set(self.tcs.col.fixed[name], arr)
 
-    def assignment(self, trace: Trace, device=CUDA) -> Assignment:
-        """Full assignment (fixed + advice + instance) for one trace."""
-        asg = Assignment(self.tcs.cs, self.tcs.n, device)
+    def assignment(self, trace: Trace, device=CUDA,
+                   host: bool = False) -> Assignment:
+        """Full assignment (fixed + advice + instance) for one trace,
+        encoded on `device`; with `host`, each column rests in host memory
+        once encoded (`Assignment`)."""
+        asg = Assignment(self.tcs.cs, self.tcs.n, device, host=host)
         self._set_fixed(asg)
         for name, arr in exe_witness(self.tcs, trace).items():
             asg.set(self.tcs.col.advice[name], arr)
@@ -60,11 +64,16 @@ class TinyRamCircuit:
         MockProver::assert_satisfied usage (circuits/mod.rs:364-375)."""
         return MockProver(self.tcs.cs, self.assignment(trace, device)).verify()
 
-    def keygen(self, srs: SRS) -> ProvingKey:
+    def keygen(self, srs: SRS, commit_chunk: int = COMMIT_CHUNK,
+               host: bool = False) -> ProvingKey:
+        """The key; `host` keeps its fixed Lagrange columns in host memory
+        (`plonk.keygen`).  Only the fixed columns are assigned: keygen reads
+        nothing else (zero-filling the advice and instance columns, as
+        `finalize` would, held 36 GiB at config 4)."""
         asg = Assignment(self.tcs.cs, self.tcs.n, srs.device)
         self._set_fixed(asg)
-        asg.finalize()
-        return keygen(srs, self.tcs.cs, asg)
+        return keygen(srs, self.tcs.cs, asg, commit_chunk=commit_chunk,
+                      host=host)
 
     def prove(self, srs: SRS, pk: ProvingKey, trace: Trace, rng=secrets,
               **knobs) -> bytes:
@@ -75,10 +84,12 @@ class TinyRamCircuit:
     def verify(
         self, srs: SRS, pk: ProvingKey, prog: Program, answer: int,
         proof: bytes, primary=(), aux_len: int = 0,
+        commit_chunk: int = COMMIT_CHUNK,
     ) -> bool:
         return verify_proof(
             srs, pk.vk,
             self.instance_arrays(prog, answer, primary, aux_len), proof,
+            commit_chunk=commit_chunk,
         )
 
 

@@ -26,6 +26,11 @@ steps, k = 14 (the row count its trace needs), as `bench.py`'s prover
 benchmark proves it; config 4 is `scripts/prove_config4.py`'s W = 24, 2^20
 steps, k = 21.
 
+`SIZING` holds a configuration's memory plan (`Sizing`): config 4 keeps its
+witness in pinned host memory and proves in narrow passes, with the
+arithmetic against the card's 80 GiB beside it; configs 2 and 3 use the
+library's defaults.  Every sizing gives the same keys and proof bytes.
+
 `on_stage(name, seconds, peak_bytes, held_bytes, error)` is called as each
 stage ends (peak and held None off the card), and once more with the
 exception for the stage that an exception leaves, which `prove_config`
@@ -44,15 +49,18 @@ import gc
 import os
 import secrets
 import time
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
 
 from .. import kernels
 from ..ipa import setup
+from ..ipa.ipa import COMMIT_CHUNK
 from ..ipa.srs import CACHE_DIR
 from ..plonk import MockProver, create_proof, load_pk, save_pk
 from ..plonk import verifier
+from ..plonk.prover import EVAL_SLAB, EXT_CHUNK, GATE_SLAB
 from ..utils.device import CUDA, resolve
 from ..utils.profiling import counters
 from .bench_programs import config2_program, config3_program
@@ -66,6 +74,54 @@ K = 17  # a 2^16-step trace and its memory log fit 2^17 rows
 # BASELINE config -> (program, steps_log2, k; None: the rows the trace needs)
 CONFIGS = {2: (config2_program, 12, None), 3: (config3_program, 16, K),
            4: (config3_program, 20, 21)}
+
+
+@dataclass(frozen=True)
+class Sizing:
+    """Where a configuration's witness rests and how wide each pass of its
+    proof is: `host` stores the assignment, and the key's fixed Lagrange
+    columns, in host memory (pinned on the card's host,
+    `Assignment(host=True)`, `keygen(host=True)`; such a key is made anew,
+    not cached, since `load_pk` would place it on the card); the widths
+    are `create_proof`'s (`commit_chunk` keygen's and the verifier's too).
+    The defaults are the library's: no width changes a byte of a key or a
+    proof.  The quotient picks its lift itself (`prover._lift_whole`)."""
+
+    host: bool = False
+    ext_chunk: int = EXT_CHUNK
+    gate_slab: int = GATE_SLAB
+    commit_chunk: int = COMMIT_CHUNK
+    eval_slab: int = EVAL_SLAB
+
+    def prover(self) -> dict:
+        """`create_proof`'s keyword arguments."""
+        out = asdict(self)
+        del out["host"]
+        return out
+
+
+# Config 4 (k = 21) on one 80 GiB card; a column of 2^21 (16, n) int32
+# limbs is 128 MiB.  Held on the card through the quotient: the
+# coefficients of the instance and advice columns (290, 36.25 GiB), of the
+# key's fixed columns (31, 3.9 GiB) and of the lookups' and the LogUp
+# argument's columns (37, 4.6 GiB), the SRS and the domain's tables
+# (~2 GiB): ~47 GiB, which leaves ~30 GiB for a pass.  So the witness (321
+# columns, 40.1 GiB), the key's fixed Lagrange columns (3.9 GiB) and,
+# after the grand products, the lookups' Lagrange columns (4.6 GiB) rest in
+# pinned host memory and come to the card for each use (`host`; the key,
+# 7.75 GiB, is not cached: `save_pk` took 777 s for it); ext_chunk 2 (a
+# four-step transform holds ~4 copies of its input: 2 columns, ~1 GiB; at
+# 8 columns keygen's 31-column transform peaked at 75.5 GiB beside the
+# key); commit_chunk 2 (an MSM pass costs up to ~3.4 KB a point and
+# column, config 3's keygen peak: 2 x 6.7 GiB at 2^21 points); gate_slab 8
+# (at most 35 columns a gate block, 4.4 GiB on a coset of 2^21 rows, where
+# the default 48 reads up to 75); eval_slab 8 (the evaluations' and the
+# multiopen fold's stacks, 1 GiB each: at the default 64, 8 GiB, the
+# evaluations ran out of the card with 74.57 GiB allocated, 4 GiB asked).  The quotient's widest block, the `prog`
+# lookup's 195 columns, would take ~195 GiB lifted whole, so it is lifted
+# one coset at a time.  Configs 2 and 3 keep the defaults.
+SIZING = {4: Sizing(host=True, ext_chunk=2, gate_slab=8, commit_chunk=2,
+                    eval_slab=8)}
 
 
 def key_path(cache_dir: str, config: int, word_bits: int, k: int) -> str:
@@ -157,17 +213,21 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
                  mock: bool = True, prove: bool = True, device=CUDA,
                  cache_dir: str | None = CACHE_DIR, rng=secrets,
                  word_bits: int = WORD_BITS, k: int | None = None, log=print,
-                 warm: int = 0, on_stage=None, frugal: bool = False) -> dict:
+                 warm: int = 0, on_stage=None, frugal: bool = False,
+                 sizing: Sizing | None = None) -> dict:
     """Run the stages of BASELINE config `config` (2, 3 or 4) at its steps
     and k unless `steps_log2` or `k` say otherwise; returns a report
     (seconds, peak bytes, phases, launches, sizes) and the objects of the
     run under "objects".  `on_stage`, `frugal`: see the module's
-    docstring.
+    docstring; `sizing`: the configuration's `SIZING` (the defaults for
+    configs 2 and 3) unless given.
     `warm` more proofs follow the first, each timed ("warm_prove_s") with
     its phases ("warm_phases": the last one's).  Raises if the
     traces differ, the mock names a failure, the proof is rejected or
     answer + 1 is accepted."""
     dev = resolve(device)
+    sizing = SIZING.get(config, Sizing()) if sizing is None else sizing
+    knobs = sizing.prover()
     stage = _Stages(dev, log, f"config{config}", on_stage, frugal)
     program, default_steps, default_k = CONFIGS[config]
     steps_log2 = default_steps if steps_log2 is None else steps_log2
@@ -187,12 +247,14 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
         f"instance={cs.num_instance} lookups={len(cs.lookups)} "
         f"range={len(cs.range_lookups)}")
     report = {"config": config, "word_bits": word_bits, "k": circ.k,
+              "sizing": asdict(sizing),
               "steps": len(trace), "accesses": len(trace.accesses),
               "seconds": stage.seconds, "peak_bytes": stage.peak_bytes,
               "held_bytes": stage.held_bytes}
     objects = {"prog": prog, "trace": trace, "circ": circ}
     report["objects"] = objects
-    asg = stage("witness", lambda: circ.assignment(trace, dev))
+    asg = stage("witness", lambda: circ.assignment(trace, dev,
+                                                   host=sizing.host))
     objects["asg"] = asg
 
     if mock:
@@ -207,12 +269,13 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
 
     if prove:
         srs = stage("srs setup", lambda: setup(circ.k, dev, cache_dir=cache_dir))
-        pk_path = None if cache_dir is None else key_path(
-            cache_dir, config, word_bits, circ.k)
+        pk_path = None if cache_dir is None or sizing.host \
+            else key_path(cache_dir, config, word_bits, circ.k)
         if pk_path is not None and os.path.exists(pk_path):
             pk = stage("key load", lambda: load_pk(pk_path, cs, dev))
         else:
-            pk = stage("keygen", lambda: circ.keygen(srs))
+            pk = stage("keygen", lambda: circ.keygen(
+                srs, commit_chunk=sizing.commit_chunk, host=sizing.host))
             if pk_path is not None:
                 os.makedirs(cache_dir, exist_ok=True)
                 stage("key save", lambda: save_pk(pk_path, pk))
@@ -221,7 +284,8 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
         counters.seconds.clear()
         proof = stage("prove", lambda: create_proof(
             srs, pk, asg, rng=rng, phase_hook=lambda name, s, n: log(
-                f"[config{config} phase] {name}: {s:.3f}s, {n} kernel launches")))
+                f"[config{config} phase] {name}: {s:.3f}s, {n} kernel launches"),
+            **knobs))
         report["launches"] = kernels.launch_counts()
         report["widest_launches"] = kernels.widest_launches()
         report["phases"] = {name[len("prover."):]: v["seconds"]
@@ -229,8 +293,9 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
                             if name.startswith("prover.")}
         counters.ops.clear()
         counters.seconds.clear()
-        ok = stage("verify", lambda: circ.verify(srs, pk, prog, trace.answer,
-                                                 proof))
+        ok = stage("verify", lambda: circ.verify(
+            srs, pk, prog, trace.answer, proof,
+            commit_chunk=sizing.commit_chunk))
         if frugal:
             report["instance_cache_held"] = {
                 "verify": stage.drop_instance_cache()}
@@ -239,7 +304,8 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
             for name, v in counters.report().items()
             if name.startswith("verifier.")}
         bad_ok = stage("verify answer+1", lambda: circ.verify(
-            srs, pk, prog, trace.answer + 1, proof))
+            srs, pk, prog, trace.answer + 1, proof,
+            commit_chunk=sizing.commit_chunk))
         if frugal:
             report["instance_cache_held"]["verify answer+1"] = \
                 stage.drop_instance_cache()
@@ -258,7 +324,7 @@ def prove_config(config: int = 3, steps_log2: int | None = None,
             counters.ops.clear()
             counters.seconds.clear()
             stage(f"prove warm {i + 1}", lambda: create_proof(
-                srs, pk, asg, rng=rng))
+                srs, pk, asg, rng=rng, **knobs))
             report["warm_prove_s"].append(stage.seconds[f"prove warm {i + 1}"])
             report["warm_phases"] = {
                 name[len("prover."):]: v["seconds"]
