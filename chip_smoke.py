@@ -94,7 +94,7 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA device)
     the constraints fold, every transform split), and the scaling report
     at D = 1, 2, 4.  Each path's counts are reset in every rank before it,
     summed over the ranks, and must show its kernels; each proof's rank
-    prints its seven phase seconds, its peak, the peak at each phase's end
+    prints its eight phase seconds, its peak, the peak at each phase's end
     and the collectives of every phase.
 16. The digit-matmul NTT (M1) and the batched-affine MSM (A1, A2), with
     the counts reset before each path (`mxu_affine_phase`): M1 against its

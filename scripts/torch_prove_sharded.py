@@ -9,7 +9,7 @@ then runs `shard.paths.config_proof` on D ranks (`run_on_mesh`: every rank
 on the card(s) as `rank_devices` maps them) under `SeededRng(seed)`, and
 prints one JSON line: the card, the checkout, whether the ranks' bytes are
 equal, verified and answer + 1 rejected, and per rank its prove seconds,
-the seconds of the prover's seven phases, its peak GiB, the peak at the
+the seconds of the prover's phases, its peak GiB, the peak at the
 end of each phase and the field elements each collective kind sent in
 each phase (where the checkout records them).  --root DIR
 runs the `tinyram_tpu_torch` of another checkout (a parent commit), so two

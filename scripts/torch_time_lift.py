@@ -8,7 +8,7 @@ one seeded stream with the quotient lifted to the whole extended coset
 (what their free memory chooses, `plonk.prover._lift_whole`) and one coset
 at a time (within `utils.device.memory_cap(0)`, as config 4's is): one
 untimed proof of each lift, then whole, coset, coset, whole, every proof's
-bytes equal.  Each timed proof's seconds, its seven phases' seconds and its
+bytes equal.  Each timed proof's seconds, its phases' seconds and its
 peak device memory go to chiprun_out/lift_report.json with the card's name
 and power limit, which is printed as the last line.  Exits 1 if the bytes
 differ.

@@ -70,8 +70,8 @@ def test_phase_collectives_hold_the_row_block_pattern(run):
     first three phases, nothing in the fold, one sum a slot in the
     evaluations, and one gather of the opened polynomial in the multiopen.
     No transform goes unsplit, and the whole proof gathers no more than the
-    phases do (the instance and advice transforms run before the first
-    phase's clock)."""
+    phases do (the instance and advice transforms, a phase of their own,
+    gather nothing)."""
     res, _ = run
     toy = toy_circuit()
     want = paths.gather_pattern(toy.cs, K, 2)

@@ -39,6 +39,7 @@ from ..field.field import FP
 from ..poly.ntt import powers, tree_sum
 from ..transcript.transcript import TranscriptReader, TranscriptWriter
 from ..utils.algorithms import msm_affine
+from ..utils.profiling import span
 from .srs import SRS
 
 P = FP.modulus
@@ -105,51 +106,59 @@ def open_poly(
     k, n = srs.k, srs.n
     dev = coeffs.device
     m = coeffs.shape[-1]
-    if m < n:
-        coeffs = torch.cat([coeffs, FP.zeros((n - m,), dev)], dim=-1)
-    a = coeffs
-    b = torch.as_tensor(powers(FP, x % P, n), device=dev)
-    gamma = FP.ones((n,), dev)
-    maps = _fold_maps(k)
+    with span("ipa.powers"):
+        if m < n:
+            coeffs = torch.cat([coeffs, FP.zeros((n - m,), dev)], dim=-1)
+        a = coeffs
+        b = torch.as_tensor(powers(FP, x % P, n), device=dev)
+        gamma = FP.ones((n,), dev)
+        maps = _fold_maps(k)
     u_base = srs.u_host
 
     for j in range(k):
-        lo_index, in_hi = maps[j]
-        lo_index = torch.as_tensor(lo_index, device=dev)
-        hi_sel = torch.as_tensor(in_hi, device=dev)  # 1 where t folds into hi
-        m_j = n >> j
-        half = m_j // 2
-        a_lo = a[:, :half]
-        a_hi = a[:, half:m_j]
-        b_lo = b[:, :half]
-        b_hi = b[:, half:m_j]
-        # L_j = <a_lo, G_hi> + <a_lo, b_hi> U: the scalar of original index
-        # t is gamma_t * a_lo[lo_index[t]] where t lies in the hi half
-        wL = FP.mul(gamma, a_lo[:, lo_index]) * hi_sel[None]
-        wR = FP.mul(gamma, a_hi[:, lo_index]) * (1 - hi_sel)[None]
-        sL = FP.decode(tree_sum(FP, FP.mul(a_lo, b_hi))[:, None])[0]
-        sR = FP.decode(tree_sum(FP, FP.mul(a_hi, b_lo))[:, None])[0]
-        lr = to_affine_host(
-            _msm_dispatch(FP.from_mont(torch.stack([wL, wR], dim=1)), srs.g)
-        )
-        L_base, R_base = lr[0], lr[1]
-        xi_l, xi_r = rng.randbelow(P), rng.randbelow(P)
-        L = host_jacobian.lincomb([(sL, u_base), (xi_l, srs.w_host)], L_base)
-        R = host_jacobian.lincomb([(sR, u_base), (xi_r, srs.w_host)], R_base)
-        tw.write_point(L)
-        tw.write_point(R)
-        u = tw.challenge()
-        u_inv = pow(u, P - 2, P)
-        blind = (blind + u * u % P * xi_l + u_inv * u_inv % P * xi_r) % P
-        ud = FP.const(u, 1, dev)
-        uid = FP.const(u_inv, 1, dev)
-        a = FP.add(FP.mul(ud, a_lo), FP.mul(uid, a_hi))
-        b = FP.add(FP.mul(uid, b_lo), FP.mul(ud, b_hi))
-        # gamma picks up u for hi-half indices, u_inv for lo-half ones
-        gamma = FP.select(hi_sel.to(torch.bool), FP.mul(gamma, ud),
-                          FP.mul(gamma, uid))
+        with span("ipa.round"):
+            lo_index, in_hi = maps[j]
+            lo_index = torch.as_tensor(lo_index, device=dev)
+            hi_sel = torch.as_tensor(in_hi, device=dev)  # 1: t folds into hi
+            m_j = n >> j
+            half = m_j // 2
+            a_lo = a[:, :half]
+            a_hi = a[:, half:m_j]
+            b_lo = b[:, :half]
+            b_hi = b[:, half:m_j]
+            # L_j = <a_lo, G_hi> + <a_lo, b_hi> U: the scalar of original
+            # index t is gamma_t * a_lo[lo_index[t]] where t lies in the hi
+            # half
+            wL = FP.mul(gamma, a_lo[:, lo_index]) * hi_sel[None]
+            wR = FP.mul(gamma, a_hi[:, lo_index]) * (1 - hi_sel)[None]
+            with span("ipa.decode"):
+                sL = FP.decode(tree_sum(FP, FP.mul(a_lo, b_hi))[:, None])[0]
+                sR = FP.decode(tree_sum(FP, FP.mul(a_hi, b_lo))[:, None])[0]
+            with span("msm"):
+                lr = to_affine_host(_msm_dispatch(
+                    FP.from_mont(torch.stack([wL, wR], dim=1)), srs.g))
+            L_base, R_base = lr[0], lr[1]
+            xi_l, xi_r = rng.randbelow(P), rng.randbelow(P)
+            with span("ipa.lincomb"):
+                L = host_jacobian.lincomb([(sL, u_base), (xi_l, srs.w_host)],
+                                          L_base)
+                R = host_jacobian.lincomb([(sR, u_base), (xi_r, srs.w_host)],
+                                          R_base)
+            tw.write_point(L)
+            tw.write_point(R)
+            u = tw.challenge()
+            u_inv = pow(u, P - 2, P)
+            blind = (blind + u * u % P * xi_l + u_inv * u_inv % P * xi_r) % P
+            ud = FP.const(u, 1, dev)
+            uid = FP.const(u_inv, 1, dev)
+            a = FP.add(FP.mul(ud, a_lo), FP.mul(uid, a_hi))
+            b = FP.add(FP.mul(uid, b_lo), FP.mul(ud, b_hi))
+            # gamma picks up u for hi-half indices, u_inv for lo-half ones
+            gamma = FP.select(hi_sel.to(torch.bool), FP.mul(gamma, ud),
+                              FP.mul(gamma, uid))
 
-    a0 = FP.decode(a[:, :1])[0]
+    with span("ipa.decode"):
+        a0 = FP.decode(a[:, :1])[0]
     tw.write_scalar(a0)
     tw.write_scalar(blind)  # ξ_final
 
@@ -250,11 +259,18 @@ def commit_many(srs: SRS, coeff_list, blinds=None,
     of the generators with no gather.  The vector's length is the global
     one, D times the block's, and must be the SRS's: a shorter vector's
     zero pad would move rows between the ranks' blocks.  With no mesh, a
-    vector shorter than the SRS is padded with zeros."""
-    from ..shard.context import current_mesh
-
+    vector shorter than the SRS is padded with zeros.  The span "msm"
+    (`utils.profiling`) covers the passes and the host's affine points."""
     if not coeff_list:
         return []
+    with span("msm"):
+        return _commit_many(srs, coeff_list, blinds, commit_chunk)
+
+
+def _commit_many(srs: SRS, coeff_list, blinds, commit_chunk: int
+                 ) -> list[AffinePoint]:
+    from ..shard.context import current_mesh
+
     n = srs.n
     mesh = current_mesh()
     padded = []

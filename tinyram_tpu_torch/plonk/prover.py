@@ -44,8 +44,12 @@ M1) and `msm_affine=True`
 (`TINYRAM_MSM_AFFINE=1`: the commitments' and opening rounds' Pippenger
 MSMs run the batched-affine bucket scan, kernel A1), through the context
 of `utils/algorithms.py`; the mesh branches keep their algorithms.  The
-seven phases of the reference are timed into `utils.profiling.counters`
-as "prover.<phase>".
+seven phases of the reference, and the interpolation of the instance and
+advice columns before them, are timed into `utils.profiling.counters` as
+"prover.<phase>" and recorded as spans (`utils.profiling.span`), with leaf
+spans inside them: "ntt" (the domain transforms), "msm" (the commitments,
+`ipa/ipa.py`), "lookup.*", "grand.products", "quotient.eval", "open.*" and
+the IPA's "ipa.*".
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from ..poly.ntt import _mont_table, eval_poly_rows, tree_sum
 from ..transcript import TranscriptWriter
 from ..utils.algorithms import algorithms
 from ..utils.device import free_bytes
-from ..utils.profiling import counters
+from ..utils.profiling import counters, log as span_log, span
 from .circuit import Assignment, pinned
 from .expr import batched_evaluate, queried_vars
 from .keygen import ProvingKey, delta
@@ -78,28 +82,54 @@ GATE_SLAB = 48  # gate polynomials per quotient block (reference default)
 EVAL_SLAB = 64  # columns per batched evaluation and per multiopen fold
 
 
+PHASES = ("interpolate instance+advice", "commit instance+advice",
+          "lookup permute+commit", "grand products", "constraint ext eval",
+          "quotient+commit", "evaluations", "multiopen+ipa")
+
+
 class _Phases:
-    """Records each prover phase into `counters` as "prover.<name>": its
-    wall time once the device has finished, and (as its op count) the
-    kernel launches it made; under a mesh, each collective kind that moved
-    in the phase as "prover.<name>/<kind>" (the field elements this rank
-    sent and their seconds, `shard/mesh.py`); `hook(name, seconds,
-    launches)` is called after each phase if given."""
+    """Records each prover phase of `PHASES`, in order, into `counters` as
+    "prover.<name>": its wall time on `time.perf_counter` once the device
+    has finished, and (as its op count) the kernel launches it made; under
+    a mesh, each collective kind that moved in the phase as
+    "prover.<name>/<kind>" (the field elements this rank sent and their
+    seconds, `shard/mesh.py`); `hook(name, seconds, launches)` is called
+    after each phase if given.  While spans record, each phase is the span
+    "prover.<name>", and the spans inside it carry its name
+    (`utils.profiling`).  A context manager: the first phase starts on
+    entry, and leaving clears the running phase."""
 
     def __init__(self, device, hook=None):
         self.device = device
         self.hook = hook
+        self._names = iter(PHASES)
+
+    def __enter__(self):
         self._start()
+        return self
+
+    def __exit__(self, *exc):
+        span_log.phase = None
+        return False
 
     def _start(self):
-        self.t0 = time.time()
+        self.name = next(self._names, None)
+        span_log.phase = None if self.name is None else f"prover.{self.name}"
+        self.t0 = time.perf_counter()
         self.l0 = kernels.total_launches()
         self.m0 = counters.snapshot("mesh.")
 
     def end(self, name: str) -> None:
+        if name != self.name:
+            raise RuntimeError(f"prover phase {name!r} ended during "
+                               f"{self.name!r}")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        dt, launches = time.time() - self.t0, kernels.total_launches() - self.l0
+        t1 = time.perf_counter()
+        dt, launches = t1 - self.t0, kernels.total_launches() - self.l0
+        span_log.phase = None
+        if span_log.on():
+            span_log.record(f"prover.{name}", self.t0, t1)
         counters.add(f"prover.{name}", launches, dt)
         for key, (ops, secs) in counters.snapshot("mesh.").items():
             ops0, secs0 = self.m0.get(key, (0, 0.0))
@@ -231,9 +261,10 @@ class _Lift:
     def one(self, col: torch.Tensor) -> torch.Tensor:
         """Coefficients (16, ..., n/D) -> their evaluations (this rank's
         rows) on the whole coset or on coset j."""
-        if self.coset is None:
-            return self.dom.coeff_to_extended_rows(col)
-        return self.dom.coeff_to_coset_rows(col, self.coset)
+        with span("ntt"):
+            if self.coset is None:
+                return self.dom.coeff_to_extended_rows(col)
+            return self.dom.coeff_to_coset_rows(col, self.coset)
 
     def table(self, whole) -> torch.Tensor:
         """This rank's rows of a whole extended table (host or device)."""
@@ -279,18 +310,20 @@ def _l2c_chunked(dom, lag, pids: list, ext_chunk: int) -> torch.Tensor:
     (`Domain.lagrange_to_coeff_rows` of the rank's block of each column,
     no gather), the whole without.  Only a chunk of the Lagrange columns
     is on the device at a time (`lag` may fetch them from the host)."""
-    out = None
-    for lo in range(0, len(pids), ext_chunk):
-        part = dom.lagrange_to_coeff_rows(torch.stack(
-            [dom.block(lag[pid]) for pid in pids[lo : lo + ext_chunk]], dim=1))
-        if lo == 0 and len(pids) <= ext_chunk:
-            return part
-        if out is None:
-            out = part.new_empty(part.shape[:1] + (len(pids),)
-                                 + part.shape[2:])
-        out[:, lo : lo + part.shape[1]] = part
-        del part
-    return out
+    with span("ntt"):
+        out = None
+        for lo in range(0, len(pids), ext_chunk):
+            part = dom.lagrange_to_coeff_rows(torch.stack(
+                [dom.block(lag[pid]) for pid in pids[lo : lo + ext_chunk]],
+                dim=1))
+            if lo == 0 and len(pids) <= ext_chunk:
+                return part
+            if out is None:
+                out = part.new_empty(part.shape[:1] + (len(pids),)
+                                     + part.shape[2:])
+            out[:, lo : lo + part.shape[1]] = part
+            del part
+        return out
 
 
 def _fold(constraints: list, w: torch.Tensor, rows: int) -> torch.Tensor:
@@ -571,20 +604,25 @@ def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
         assert state["i"] == K, (state["i"], K)
         return state["acc"]
 
-    if _lift_whole(cs, dom, gate_slab, current_mesh()):
-        acc = fold(_Lift(dom, ext_chunk))
-    else:
-        acc = None
-        for j in range(scale):
-            part = fold(_Lift(dom, ext_chunk, j))
-            if acc is None:
-                acc = part.new_empty(part.shape[:-1]
-                                     + (part.shape[-1] * scale,))
-            acc.view(part.shape[:-1] + (part.shape[-1], scale))[..., j] = part
-            del part
+    with span("quotient.eval"):  # the lifts inside are "ntt" spans
+        if _lift_whole(cs, dom, gate_slab, current_mesh()):
+            acc = fold(_Lift(dom, ext_chunk))
+        else:
+            acc = None
+            for j in range(scale):
+                part = fold(_Lift(dom, ext_chunk, j))
+                if acc is None:
+                    acc = part.new_empty(part.shape[:-1]
+                                         + (part.shape[-1] * scale,))
+                acc.view(part.shape[:-1]
+                         + (part.shape[-1], scale))[..., j] = part
+                del part
     if on_folded is not None:
         on_folded(acc)
-    return dom.extended_rows_to_coeff(dom.divide_by_vanishing(acc))
+    with span("quotient.eval"):
+        acc = dom.divide_by_vanishing(acc)
+    with span("ntt"):
+        return dom.extended_rows_to_coeff(acc)
 
 
 def permute_lookup(a_vals: list[int], s_vals: list[int]):
@@ -714,6 +752,15 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             return _create_proof(srs, pk, asg, tw, MeshRng(mesh, rng),
                                  ext_chunk, gate_slab, commit_chunk,
                                  phase_hook, None, eval_slab)
+    with _Phases(pk.domain.device, phase_hook) as phases:
+        return _prove(srs, pk, asg, tw, rng, ext_chunk, gate_slab,
+                      commit_chunk, eval_slab, phases)
+
+
+def _prove(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
+           eval_slab, phases: _Phases) -> bytes:
+    """`create_proof`'s body on one device (or one rank of the mesh
+    context), its phases ended on `phases`."""
     cs = pk.vk.cs
     dom = pk.domain
     dev = dom.device
@@ -771,7 +818,7 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     for i in range(cs.num_advice):
         coeff[("advice", i)] = coeff_stack[:, cs.num_instance + i]
 
-    phases = _Phases(dev, phase_hook)
+    phases.end("interpolate instance+advice")
     # 1. bind vk + instances + advice (one batched MSM)
     pk.vk.absorb_into(tw)
     all_comms = cm(
@@ -808,33 +855,50 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
 
     lookup_data = []
     permuted = []
-    for lk in cs.lookups:
-        lookup_data.append((_compress_lag_chunked(lk.inputs),
-                            _compress_lag_chunked(lk.tables)))
+    with span("lookup.compress"):
+        for lk in cs.lookups:
+            lookup_data.append((_compress_lag_chunked(lk.inputs),
+                                _compress_lag_chunked(lk.tables)))
+        if lookup_data:
+            all_pairs = torch.stack([x for pair in lookup_data for x in pair],
+                                    dim=1)
+            pairs_plain = FP.from_mont(all_pairs[:, :, :u].contiguous())
+            del all_pairs
     if lookup_data:
-        all_pairs = torch.stack([x for pair in lookup_data for x in pair], dim=1)
-        host_pairs = _host_limbs(FP.from_mont(all_pairs[:, :, :u].contiguous()))
-        del all_pairs
+        with span("lookup.fetch"):
+            host_pairs = _host_limbs(pairs_plain)
+        del pairs_plain
     for li, (a_lag, s_lag) in enumerate(lookup_data):
-        # permute over the usable prefix only; the blinding tail is random
-        ha = host_pairs[:, 2 * li]
-        hs = host_pairs[:, 2 * li + 1]
-        a64 = _limbs_to_i64(ha)
-        s64 = _limbs_to_i64(hs)
-        if a64 is not None and s64 is not None:
-            ap_arr, sp_arr = permute_lookup_np(a64, s64)
-            ap_body = FP.encode(ap_arr, device=dev)
-            sp_body = FP.encode(sp_arr, device=dev)
-        else:
-            ap_ints, sp_ints = permute_lookup(limb_array_to_ints(ha),
-                                              limb_array_to_ints(hs))
-            ap_body = torch.as_tensor(_mont_table(FP, ap_ints), device=dev)
-            sp_body = torch.as_tensor(_mont_table(FP, sp_ints), device=dev)
-        tail_vals = _rand_tail(2 * (n - u))
-        ap_lag = torch.cat([ap_body, torch.as_tensor(
-            _mont_table(FP, tail_vals[: n - u]), device=dev)], dim=1)
-        sp_lag = torch.cat([sp_body, torch.as_tensor(
-            _mont_table(FP, tail_vals[n - u:]), device=dev)], dim=1)
+        with span("lookup.permute"):
+            # permute over the usable prefix only; the blinding tail is
+            # random.  Values under 2^62 permute as int64 and are encoded
+            # on the device; larger ones as Python ints, encoded here.
+            ha = host_pairs[:, 2 * li]
+            hs = host_pairs[:, 2 * li + 1]
+            a64 = _limbs_to_i64(ha)
+            s64 = _limbs_to_i64(hs)
+            as_i64 = a64 is not None and s64 is not None
+            if as_i64:
+                ap_host, sp_host = permute_lookup_np(a64, s64)
+            else:
+                ap_ints, sp_ints = permute_lookup(limb_array_to_ints(ha),
+                                                  limb_array_to_ints(hs))
+                ap_host = _mont_table(FP, ap_ints)
+                sp_host = _mont_table(FP, sp_ints)
+            tail_vals = _rand_tail(2 * (n - u))
+            ap_tail = _mont_table(FP, tail_vals[: n - u])
+            sp_tail = _mont_table(FP, tail_vals[n - u:])
+        with span("lookup.upload"):
+            if as_i64:
+                ap_body = FP.encode(ap_host, device=dev)
+                sp_body = FP.encode(sp_host, device=dev)
+            else:
+                ap_body = torch.as_tensor(ap_host, device=dev)
+                sp_body = torch.as_tensor(sp_host, device=dev)
+            ap_lag = torch.cat([ap_body, torch.as_tensor(ap_tail, device=dev)],
+                               dim=1)
+            sp_lag = torch.cat([sp_body, torch.as_tensor(sp_tail, device=dev)],
+                               dim=1)
         lag[("la", li)] = ap_lag
         lag[("ls", li)] = sp_lag
         permuted += [("la", li), ("ls", li)]
@@ -859,61 +923,68 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     # row holding each value
     range_data = []  # (in_stack (16,B,n), t_lag (16,n), m_lag (16,n))
     if cs.range_lookups:
-        rl_stacks = []
-        for rl in cs.range_lookups:
-            in_vals = []
-            for lo in range(0, len(rl.inputs), 8):
-                in_vals.extend(
-                    _eval_exprs_on(rl.inputs[lo : lo + 8], col_lag, 1, {})
-                )
-            t_val = _eval_exprs_on([rl.table], col_lag, 1, {})[0]
-            rl_stacks.append((torch.stack(in_vals, dim=1), t_val))
-            del in_vals
-        all_cols = torch.cat(
-            [torch.cat([s, t[:, None]], dim=1) for s, t in rl_stacks], dim=1
-        )
-        host_cols = _host_limbs(FP.from_mont(all_cols[:, :, :u].contiguous()))
-        del all_cols
+        with span("lookup.compress"):  # here: the LogUp inputs and tables
+            rl_stacks = []
+            for rl in cs.range_lookups:
+                in_vals = []
+                for lo in range(0, len(rl.inputs), 8):
+                    in_vals.extend(
+                        _eval_exprs_on(rl.inputs[lo : lo + 8], col_lag, 1, {})
+                    )
+                t_val = _eval_exprs_on([rl.table], col_lag, 1, {})[0]
+                rl_stacks.append((torch.stack(in_vals, dim=1), t_val))
+                del in_vals
+            all_cols = torch.cat(
+                [torch.cat([s, t[:, None]], dim=1) for s, t in rl_stacks],
+                dim=1)
+            cols_plain = FP.from_mont(all_cols[:, :, :u].contiguous())
+            del all_cols
+        with span("lookup.fetch"):
+            host_cols = _host_limbs(cols_plain)
+        del cols_plain
         m_lags = []
         off = 0
         for rl, (in_stack, t_lag) in zip(cs.range_lookups, rl_stacks):
-            nin = in_stack.shape[1]
-            h_in = host_cols[:, off : off + nin]
-            h_t = host_cols[:, off + nin]
-            off += nin + 1
-            cols64 = [_limbs_to_i64(h_in[:, j]) for j in range(nin)]
-            t64 = _limbs_to_i64(h_t)
-            if t64 is None or any(c is None for c in cols64):
-                t64 = np.array(
-                    [limbs_to_int(h_t[:, i]) for i in range(u)], dtype=object
-                )
-                cols64 = [
-                    np.array([limbs_to_int(h_in[:, j, i]) for i in range(u)],
-                             dtype=object)
-                    for j in range(nin)
-                ]
-            invals = np.concatenate(cols64)
-            order = np.argsort(t64, kind="stable")
-            sorted_t = t64[order]
-            idx = np.searchsorted(sorted_t, invals, side="left")
-            ok = (idx < u) & (sorted_t[np.minimum(idx, u - 1)] == invals)
-            if not ok.all():
-                missing = invals[~ok][0]
-                raise ValueError(
-                    f"range_lookup {rl.name}: input {missing} not in table"
-                )
-            counts_sorted = np.bincount(idx, minlength=u)
-            m_arr = np.zeros(n, dtype=np.int64)
-            m_arr[order] = counts_sorted[:u]
-            m_lag = FP.encode(m_arr, device=dev)
-            if bf > 0:
-                m_lag = m_lag.clone()
-                m_lag[:, u:] = FP.encode(_rand_tail(n - u), device=dev)
+            with span("lookup.multiplicity"):
+                nin = in_stack.shape[1]
+                h_in = host_cols[:, off : off + nin]
+                h_t = host_cols[:, off + nin]
+                off += nin + 1
+                cols64 = [_limbs_to_i64(h_in[:, j]) for j in range(nin)]
+                t64 = _limbs_to_i64(h_t)
+                if t64 is None or any(c is None for c in cols64):
+                    t64 = np.array(
+                        [limbs_to_int(h_t[:, i]) for i in range(u)],
+                        dtype=object)
+                    cols64 = [
+                        np.array([limbs_to_int(h_in[:, j, i])
+                                  for i in range(u)], dtype=object)
+                        for j in range(nin)
+                    ]
+                invals = np.concatenate(cols64)
+                order = np.argsort(t64, kind="stable")
+                sorted_t = t64[order]
+                idx = np.searchsorted(sorted_t, invals, side="left")
+                ok = (idx < u) & (sorted_t[np.minimum(idx, u - 1)] == invals)
+                if not ok.all():
+                    missing = invals[~ok][0]
+                    raise ValueError(
+                        f"range_lookup {rl.name}: input {missing} not in table"
+                    )
+                counts_sorted = np.bincount(idx, minlength=u)
+                m_arr = np.zeros(n, dtype=np.int64)
+                m_arr[order] = counts_sorted[:u]
+            with span("lookup.upload"):
+                m_lag = FP.encode(m_arr, device=dev)
+                if bf > 0:
+                    m_lag = m_lag.clone()
+                    m_lag[:, u:] = FP.encode(_rand_tail(n - u), device=dev)
             m_lags.append(m_lag)
             range_data.append((in_stack, t_lag, m_lag))
         del rl_stacks, host_cols
-        m_coeff = dom.lagrange_to_coeff_rows(
-            dom.block(torch.stack(m_lags, dim=1)))
+        with span("ntt"):
+            m_coeff = dom.lagrange_to_coeff_rows(
+                dom.block(torch.stack(m_lags, dim=1)))
         m_comms = cm(
             [m_coeff[:, i] for i in range(m_coeff.shape[1])],
             [_blind(("rm", ri)) for ri in range(len(cs.range_lookups))],
@@ -933,50 +1004,57 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     perm_cols = pk.vk.perm_columns
     row_mask = torch.arange(n, device=dev) < u
     if perm_cols:
-        d = delta()
-        omega_tbl = torch.as_tensor(dom.omega_powers(), device=dev)  # X on H
-        num = None
-        den = None
-        for j, col in enumerate(perm_cols):
-            v = lag[(col.kind, col.index)]
-            dj = pow(d, j, P) * beta % P
-            t_num = FP.add(FP.add(v, FP.mul(const(dj), omega_tbl)), gamma_d)
-            t_den = FP.add(FP.add(v, FP.mul(beta_d, lag[("sigma", j)])),
-                           gamma_d)
-            num = t_num if num is None else FP.mul(num, t_num)
-            den = t_den if den is None else FP.mul(den, t_den)
-        # restrict the product to usable rows; z[u] is the end value
-        ones_n = FP.ones((n,), dev)
-        zperm = _grand_product(torch.where(row_mask, num, ones_n),
-                               torch.where(row_mask, den, ones_n))
-        if bf > 0:
-            zperm[:, u + 1 :] = FP.encode(_rand_tail(n - u - 1), device=dev)
+        with span("grand.products"):
+            d = delta()
+            # X on H
+            omega_tbl = torch.as_tensor(dom.omega_powers(), device=dev)
+            num = None
+            den = None
+            for j, col in enumerate(perm_cols):
+                v = lag[(col.kind, col.index)]
+                dj = pow(d, j, P) * beta % P
+                t_num = FP.add(FP.add(v, FP.mul(const(dj), omega_tbl)),
+                               gamma_d)
+                t_den = FP.add(FP.add(v, FP.mul(beta_d, lag[("sigma", j)])),
+                               gamma_d)
+                num = t_num if num is None else FP.mul(num, t_num)
+                den = t_den if den is None else FP.mul(den, t_den)
+            # restrict the product to usable rows; z[u] is the end value
+            ones_n = FP.ones((n,), dev)
+            zperm = _grand_product(torch.where(row_mask, num, ones_n),
+                                   torch.where(row_mask, den, ones_n))
+            if bf > 0:
+                zperm[:, u + 1 :] = FP.encode(_rand_tail(n - u - 1),
+                                              device=dev)
         lag[("zperm",)] = zperm
-        coeff[("zperm",)] = dom.lagrange_to_coeff_rows(dom.block(zperm))
+        with span("ntt"):
+            coeff[("zperm",)] = dom.lagrange_to_coeff_rows(dom.block(zperm))
         tw.write_point(commit(srs, coeff[("zperm",)], blind=_blind(("zperm",)),
                               commit_chunk=commit_chunk))
 
     # 4. lookup grand products (batched across lookups)
     if lookup_data:
-        nums = torch.stack(
-            [FP.mul(FP.add(a_lag, beta_d), FP.add(s_lag, gamma_d))
-             for a_lag, s_lag in lookup_data], dim=1)
-        dens = torch.stack(
-            [FP.mul(FP.add(lag[("la", li)], beta_d),
-                    FP.add(lag[("ls", li)], gamma_d))
-             for li in range(len(cs.lookups))], dim=1)
-        ones_b = FP.ones((1, n), dev)
-        del lookup_data  # the compressed inputs and tables: read only here
-        nums = torch.where(row_mask, nums, ones_b)
-        dens = torch.where(row_mask, dens, ones_b)
-        zs = _grand_product(nums, dens)
-        del nums, dens
-        if bf > 0:
-            B = zs.shape[1]
-            zs[:, :, u + 1 :] = FP.encode(
-                _rand_tail(B * (n - u - 1)), device=dev
-            ).reshape(16, B, n - u - 1)
-        z_coeff = dom.lagrange_to_coeff_rows(dom.block(zs))
+        with span("grand.products"):
+            nums = torch.stack(
+                [FP.mul(FP.add(a_lag, beta_d), FP.add(s_lag, gamma_d))
+                 for a_lag, s_lag in lookup_data], dim=1)
+            dens = torch.stack(
+                [FP.mul(FP.add(lag[("la", li)], beta_d),
+                        FP.add(lag[("ls", li)], gamma_d))
+                 for li in range(len(cs.lookups))], dim=1)
+            ones_b = FP.ones((1, n), dev)
+            del lookup_data  # the compressed inputs and tables: read only here
+            nums = torch.where(row_mask, nums, ones_b)
+            dens = torch.where(row_mask, dens, ones_b)
+            zs = _grand_product(nums, dens)
+            del nums, dens
+            if bf > 0:
+                B = zs.shape[1]
+                zs[:, :, u + 1 :] = FP.encode(
+                    _rand_tail(B * (n - u - 1)), device=dev
+                ).reshape(16, B, n - u - 1)
+        with span("ntt"):
+            z_coeff = dom.lagrange_to_coeff_rows(dom.block(zs))
         z_comms = cm(
             [z_coeff[:, i] for i in range(z_coeff.shape[1])],
             [_blind(("lz", i)) for i in range(z_coeff.shape[1])],
@@ -991,50 +1069,52 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     # h_T = m/(β+t), z = exclusive prefix sum of (Σ_b h_b − h_T) over
     # usable rows; one batched inversion covers every denominator
     if range_data:
-        den_list = []
-        for in_stack, t_lag, _ in range_data:
-            den_list.append(FP.add(in_stack, beta_d[:, :, None]))
-            den_list.append(FP.add(t_lag, beta_d)[:, None])
-        # the inputs are read only through their denominators from here
-        del in_stack
-        range_data = [(s.shape[1], t, m) for s, t, m in range_data]
-        dens = torch.cat(den_list, dim=1)
-        del den_list
-        invs = FP.inv(dens)
-        del dens
-        pids_order = []  # canonical commit order: per rl h_0.., h_T, z
-        cols = []
-        off = 0
-        for ri, (nin, t_lag, m_lag) in enumerate(range_data):
-            rl = cs.range_lookups[ri]
-            inv_in = invs[:, off : off + nin]
-            inv_t = invs[:, off + nin]
-            off += nin + 1
-            h_lags = []
-            j0 = 0
-            for batch in rl.batches():
-                h_lags.append(
-                    tree_sum(FP, inv_in[:, j0 : j0 + len(batch)], axis=1)
-                )
-                j0 += len(batch)
-            h_t = FP.mul(m_lag, inv_t)
-            contrib = h_lags[0]
-            for h in h_lags[1:]:
-                contrib = FP.add(contrib, h)
-            contrib = FP.sub(contrib, h_t)
-            contrib = torch.where(row_mask, contrib, FP.zeros((n,), dev))
-            z = _prefix_sum_exclusive(contrib)
-            if bf > 0:
-                z[:, u + 1 :] = FP.encode(_rand_tail(n - u - 1), device=dev)
-            for b, h in enumerate(h_lags):
-                pids_order.append(("rh", ri, b))
-                cols.append(h)
-            pids_order.append(("rt", ri))
-            cols.append(h_t)
-            pids_order.append(("rz", ri))
-            cols.append(z)
-        del invs, inv_in, inv_t, range_data, t_lag, m_lag, h_lags, h, h_t
-        del contrib, z
+        with span("grand.products"):
+            den_list = []
+            for in_stack, t_lag, _ in range_data:
+                den_list.append(FP.add(in_stack, beta_d[:, :, None]))
+                den_list.append(FP.add(t_lag, beta_d)[:, None])
+            # the inputs are read only through their denominators from here
+            del in_stack
+            range_data = [(s.shape[1], t, m) for s, t, m in range_data]
+            dens = torch.cat(den_list, dim=1)
+            del den_list
+            invs = FP.inv(dens)
+            del dens
+            pids_order = []  # canonical commit order: per rl h_0.., h_T, z
+            cols = []
+            off = 0
+            for ri, (nin, t_lag, m_lag) in enumerate(range_data):
+                rl = cs.range_lookups[ri]
+                inv_in = invs[:, off : off + nin]
+                inv_t = invs[:, off + nin]
+                off += nin + 1
+                h_lags = []
+                j0 = 0
+                for batch in rl.batches():
+                    h_lags.append(
+                        tree_sum(FP, inv_in[:, j0 : j0 + len(batch)], axis=1)
+                    )
+                    j0 += len(batch)
+                h_t = FP.mul(m_lag, inv_t)
+                contrib = h_lags[0]
+                for h in h_lags[1:]:
+                    contrib = FP.add(contrib, h)
+                contrib = FP.sub(contrib, h_t)
+                contrib = torch.where(row_mask, contrib, FP.zeros((n,), dev))
+                z = _prefix_sum_exclusive(contrib)
+                if bf > 0:
+                    z[:, u + 1 :] = FP.encode(_rand_tail(n - u - 1),
+                                              device=dev)
+                for b, h in enumerate(h_lags):
+                    pids_order.append(("rh", ri, b))
+                    cols.append(h)
+                pids_order.append(("rt", ri))
+                cols.append(h_t)
+                pids_order.append(("rz", ri))
+                cols.append(z)
+            del invs, inv_in, inv_t, range_data, t_lag, m_lag, h_lags, h, h_t
+            del contrib, z
         for pid, col in zip(pids_order, cols):
             lag[pid] = col
         r_coeff = _l2c_chunked(dom, lag, pids_order, ext_chunk)
@@ -1064,7 +1144,8 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     q_whole = q_coeff_full.reshape(16, n_chunks, n)
     # the chunks' Lagrange columns, whole as every Lagrange column, from
     # the whole coefficients every rank holds (no collective)
-    q_lag = dom.coeff_to_lagrange(q_whole)
+    with span("ntt"):
+        q_lag = dom.coeff_to_lagrange(q_whole)
     q_chunks = dom.block(q_whole)
     q_comms = cm(
         [q_chunks[:, c] for c in range(n_chunks)],
@@ -1091,15 +1172,16 @@ def _create_proof(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
     by_rot: dict[int, list] = {}
     for slot in slots:
         by_rot.setdefault(slot.rotation, []).append(slot)
-    for rot, group in by_rot.items():
-        zd = FP.encode([points[rot]], device=dev)[:, 0]
-        for lo in range(0, len(group), eval_slab):
-            chunk = group[lo : lo + eval_slab]
-            stack_c = torch.stack([coeff[s.pid] for s in chunk], dim=1)
-            vals = FP.decode(eval_poly_rows(FP, stack_c, zd))
-            del stack_c
-            for s, val in zip(chunk, vals):
-                evals[(s.pid, s.rotation)] = val
+    with span("open.evaluate"):
+        for rot, group in by_rot.items():
+            zd = FP.encode([points[rot]], device=dev)[:, 0]
+            for lo in range(0, len(group), eval_slab):
+                chunk = group[lo : lo + eval_slab]
+                stack_c = torch.stack([coeff[s.pid] for s in chunk], dim=1)
+                vals = FP.decode(eval_poly_rows(FP, stack_c, zd))
+                del stack_c
+                for s, val in zip(chunk, vals):
+                    evals[(s.pid, s.rotation)] = val
     for slot in slots:
         if slot.opened:
             tw.write_scalar(evals[(slot.pid, slot.rotation)])
@@ -1136,51 +1218,53 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
     def const(val: int) -> torch.Tensor:
         return FP.const(val, 1, dev)
 
-    omega_tbl = torch.as_tensor(dom.omega_powers(), device=dev)
-    q_lag_total = None
-    p_group = []  # (rot, P_lag, P_coeff, r_value, p_blind)
-    for rot in rot_order:
-        group = [s for s in slots if s.opened and s.rotation == rot]
-        weights = []
-        vi = 1
-        r_val = 0
-        for s in group:
-            weights.append(vi)
-            r_val = (r_val + vi * evals[(s.pid, rot)]) % P
-            vi = vi * v % P
-        p_lag = None
-        p_coeff = None
-        for lo in range(0, len(group), fold_slab):
-            chunk = group[lo : lo + fold_slab]
-            w_dev = FP.encode(weights[lo : lo + fold_slab],
-                              device=dev)[:, :, None]
-            lag_stack = torch.stack([lag[s.pid] for s in chunk], dim=1)
-            part_lag = tree_sum(FP, FP.mul(lag_stack, w_dev), axis=1)
-            del lag_stack
-            coeff_stack = torch.stack([coeff[s.pid] for s in chunk], dim=1)
-            part_coeff = tree_sum(FP, FP.mul(coeff_stack, w_dev), axis=1)
-            del coeff_stack
-            p_lag = part_lag if p_lag is None else FP.add(p_lag, part_lag)
-            p_coeff = (
-                part_coeff if p_coeff is None else FP.add(p_coeff, part_coeff)
-            )
-        p_blind = sum(
-            w * blinds.get(s.pid, 0) for w, s in zip(weights, group)
-        ) % P
-        p_group.append((rot, p_lag, p_coeff, r_val, p_blind))
-    if on_folded is not None:
-        on_folded()
+    with span("open.fold"):
+        omega_tbl = torch.as_tensor(dom.omega_powers(), device=dev)
+        q_lag_total = None
+        p_group = []  # (rot, P_lag, P_coeff, r_value, p_blind)
+        for rot in rot_order:
+            group = [s for s in slots if s.opened and s.rotation == rot]
+            weights = []
+            vi = 1
+            r_val = 0
+            for s in group:
+                weights.append(vi)
+                r_val = (r_val + vi * evals[(s.pid, rot)]) % P
+                vi = vi * v % P
+            p_lag = None
+            p_coeff = None
+            for lo in range(0, len(group), fold_slab):
+                chunk = group[lo : lo + fold_slab]
+                w_dev = FP.encode(weights[lo : lo + fold_slab],
+                                  device=dev)[:, :, None]
+                lag_stack = torch.stack([lag[s.pid] for s in chunk], dim=1)
+                part_lag = tree_sum(FP, FP.mul(lag_stack, w_dev), axis=1)
+                del lag_stack
+                coeff_stack = torch.stack([coeff[s.pid] for s in chunk], dim=1)
+                part_coeff = tree_sum(FP, FP.mul(coeff_stack, w_dev), axis=1)
+                del coeff_stack
+                p_lag = part_lag if p_lag is None else FP.add(p_lag, part_lag)
+                p_coeff = (part_coeff if p_coeff is None
+                           else FP.add(p_coeff, part_coeff))
+            p_blind = sum(
+                w * blinds.get(s.pid, 0) for w, s in zip(weights, group)
+            ) % P
+            p_group.append((rot, p_lag, p_coeff, r_val, p_blind))
+        if on_folded is not None:
+            on_folded()
 
-    uj = 1
-    for rot, p_lag, p_coeff, r_val, _ in p_group:
-        z = points[rot]
-        inv_denom = FP.inv(FP.sub(omega_tbl, const(z)))
-        numer = FP.sub(p_lag, const(r_val).expand(16, n))
-        term = FP.mul(FP.mul(const(uj), numer), inv_denom)
-        q_lag_total = term if q_lag_total is None else FP.add(q_lag_total, term)
-        uj = uj * u % P
+        uj = 1
+        for rot, p_lag, p_coeff, r_val, _ in p_group:
+            z = points[rot]
+            inv_denom = FP.inv(FP.sub(omega_tbl, const(z)))
+            numer = FP.sub(p_lag, const(r_val).expand(16, n))
+            term = FP.mul(FP.mul(const(uj), numer), inv_denom)
+            q_lag_total = (term if q_lag_total is None
+                           else FP.add(q_lag_total, term))
+            uj = uj * u % P
 
-    q_coeff = dom.lagrange_to_coeff_rows(dom.block(q_lag_total))
+    with span("ntt"):
+        q_coeff = dom.lagrange_to_coeff_rows(dom.block(q_lag_total))
     q_blind = rng.randbelow(P)
     tw.write_point(commit(srs, q_coeff, blind=q_blind,
                           commit_chunk=commit_chunk))
@@ -1188,19 +1272,21 @@ def multiopen_prove(srs, dom, tw, coeff, lag, slots, points, evals,
     zd = FP.encode([zstar], device=dev)[:, 0]
 
     w_vals = []
-    for rot, p_lag, p_coeff, r_val, _ in p_group:
-        wv = FP.decode(eval_poly_rows(FP, p_coeff, zd)[:, None])[0]
-        w_vals.append(wv)
-        tw.write_scalar(wv)
+    with span("open.evaluate"):
+        for rot, p_lag, p_coeff, r_val, _ in p_group:
+            wv = FP.decode(eval_poly_rows(FP, p_coeff, zd)[:, None])[0]
+            w_vals.append(wv)
+            tw.write_scalar(wv)
 
     s_ch = tw.challenge()
     t_coeff = q_coeff
     t_blind = q_blind
     sj = s_ch
-    for (_, _, p_coeff, _, p_blind), wv in zip(p_group, w_vals):
-        t_coeff = FP.add(t_coeff, FP.mul(const(sj), p_coeff))
-        t_blind = (t_blind + sj * p_blind) % P
-        sj = sj * s_ch % P
+    with span("open.fold"):
+        for (_, _, p_coeff, _, p_blind), wv in zip(p_group, w_vals):
+            t_coeff = FP.add(t_coeff, FP.mul(const(sj), p_coeff))
+            t_blind = (t_blind + sj * p_blind) % P
+            sj = sj * s_ch % P
 
     # the one polynomial the IPA opens, gathered (the JAX `jnp.take` of the
     # fold, which GSPMD gathers)

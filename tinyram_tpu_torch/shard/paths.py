@@ -178,7 +178,7 @@ def config_proof(mesh: Mesh, config: int = 2, seed: int = 0,
     `cache_dir` and the key from there when `prove_config` has cached it
     (else `keygen`).  Rank 0 verifies the proof, the last rank checks that
     answer + 1 is rejected.  Returns the proof bytes, the checks and the
-    stats, with the seconds of the prover's seven phases on this rank, the
+    stats, with the seconds of the prover's eight phases on this rank, the
     collectives of each ("phase_collectives") and the peak device memory
     so far at the end of each ("phase_peak_gib").  `log_phases` prints
     each phase as this rank ends it."""
@@ -252,9 +252,9 @@ def gather_pattern(cs, k: int, D: int, commit_chunk: int = COMMIT_CHUNK
         polynomial (D − 1)·n/D, and the IPA's pair of MSMs a round.
     The coefficient stacks themselves are never gathered: "commit
     instance+advice", "lookup permute+commit" and "grand products" carry
-    only MSM partials, "constraint ext eval" nothing.  The instance and
-    advice transforms run before the first phase's clock (as the JAX
-    prover's), so the whole proof's all-gather is the sum of these."""
+    only MSM partials, "interpolate instance+advice" (the instance and
+    advice transforms, all-to-all only) and "constraint ext eval"
+    nothing, so the whole proof's all-gather is the sum of these."""
     from ..plonk.protocol import eval_schedule, multiopen_point_order
 
     n = 1 << k
@@ -268,6 +268,7 @@ def gather_pattern(cs, k: int, D: int, commit_chunk: int = COMMIT_CHUNK
 
     slots = eval_schedule(cs, n_sigma, n_chunks)
     return {
+        "interpolate instance+advice": 0,
         "commit instance+advice": msm(cs.num_instance + cs.num_advice),
         "lookup permute+commit": msm(2 * n_lk, len(rls)),
         "grand products": msm(1 if n_sigma else 0, n_lk,
@@ -281,7 +282,7 @@ def gather_pattern(cs, k: int, D: int, commit_chunk: int = COMMIT_CHUNK
 
 
 def gathered_by_phase(stats: dict) -> dict:
-    """{phase: all-gather elements this rank sent in it} of the seven
+    """{phase: all-gather elements this rank sent in it} of the eight
     prover phases, from a proof's stats (`config_proof`, `toy_proof`)."""
     coll = stats["phase_collectives"]
     return {ph: coll.get(ph, {}).get("all_gather", {}).get("elements", 0)

@@ -14,6 +14,7 @@ from ..ipa.ipa import COMMIT_CHUNK
 from ..plonk import Assignment, MockProver, create_proof, keygen, verify_proof
 from ..plonk.keygen import ProvingKey
 from ..utils.device import CUDA
+from ..utils.profiling import span
 from .emulator import Trace, eval_program
 from .exe import TinyRamCS, exe_witness, fixed_columns, instance_columns
 from .isa import Program
@@ -36,17 +37,26 @@ class TinyRamCircuit:
                    host: bool = False) -> Assignment:
         """Full assignment (fixed + advice + instance) for one trace,
         encoded on `device`; with `host`, each column rests in host memory
-        once encoded (`Assignment`)."""
+        once encoded (`Assignment`).  Its steps are the spans
+        "witness.fixed", "witness.exe", "witness.instance" and
+        "witness.encode" (`utils.profiling`)."""
         asg = Assignment(self.tcs.cs, self.tcs.n, device, host=host)
-        self._set_fixed(asg)
-        for name, arr in exe_witness(self.tcs, trace).items():
-            asg.set(self.tcs.col.advice[name], arr)
-        for name, arr in instance_columns(
-            self.tcs, trace.prog, trace.answer,
-            primary=trace.primary_tape, aux_len=trace.aux_len,
-        ).items():
-            asg.set(self.tcs.col.instance[name], arr)
-        asg.finalize()
+        with span("witness.fixed"):
+            self._set_fixed(asg)
+        with span("witness.exe"):
+            cols = exe_witness(self.tcs, trace)
+        with span("witness.encode"):
+            for name, arr in cols.items():
+                asg.set(self.tcs.col.advice[name], arr)
+            del cols  # the advice arrays on the host
+        with span("witness.instance"):
+            cols = instance_columns(
+                self.tcs, trace.prog, trace.answer,
+                primary=trace.primary_tape, aux_len=trace.aux_len)
+        with span("witness.encode"):
+            for name, arr in cols.items():
+                asg.set(self.tcs.col.instance[name], arr)
+            asg.finalize()
         return asg
 
     def instance_arrays(

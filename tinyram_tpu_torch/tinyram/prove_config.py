@@ -18,7 +18,7 @@ unless the caller names another):
 Each stage's wall time is taken after the device has finished, and on the
 card its peak device memory (`torch.cuda.max_memory_allocated`, reset
 before the stage) and the memory allocated after it.  The kernel launch counts (and the widest launch of
-B1) are reset just before the proof and read just after it.  The report holds the seven prover phases
+B1) are reset just before the proof and read just after it.  The report holds the eight prover phases
 and the four verifier phases ("prover.*", "verifier.*" of
 `utils.profiling.counters`).  Nothing is cut: W = 24, k = 17 is the JAX
 script's configuration (BASELINE config 3); config 2 is W = 24, 2^12

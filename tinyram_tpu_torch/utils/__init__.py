@@ -1,3 +1,3 @@
-from .profiling import KernelCounters, profile_region, counters
+from .profiling import KernelCounters, counters, recording, span
 
-__all__ = ["KernelCounters", "profile_region", "counters"]
+__all__ = ["KernelCounters", "counters", "recording", "span"]

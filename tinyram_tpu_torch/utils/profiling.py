@@ -3,21 +3,31 @@
 The reference has no tracing at all (SURVEY.md §5: closest thing is gate
 names for MockProver errors).  Here:
 
-  * `profile_region(name)` wraps `torch.profiler.record_function` plus
-    wall-clock accounting, so prover phases show up both in profiler
-    traces (`torch.profiler.profile`) and in the in-process counters.
-  * `KernelCounters` accumulates per-kernel op counts and elapsed time and
-    reports ops/s — the per-kernel reporting BASELINE.md asks for.  The
-    mesh's collectives count here too ("mesh.<kind>": the field elements a
-    rank sent, `shard/mesh.py`), and the prover files them per phase.
+  * `span(name)`: a context manager that records (name, phase, start,
+    end) into a bounded log (`SpanLog`), on `time.perf_counter`, the clock
+    a traced benchmark run puts the card's operations on.  It records only
+    while a `torch.profiler` session runs or inside `recording()`;
+    otherwise it is one check and a return.  It never synchronizes the
+    card.  `phase` is the prover phase the span ran in ("prover.<name>",
+    set by `plonk/prover.py` `_Phases`), or None.  `spans(t0, t1)` reads
+    the entries inside a window, `dropped()` counts those the bound lost.
+  * `KernelCounters` accumulates per-name op counts and elapsed time.  The
+    prover files its phases here as "prover.<phase>" (kernel launches,
+    seconds); the mesh's collectives count here too ("mesh.<kind>": the
+    field elements a rank sent, `shard/mesh.py`), and the prover files
+    them per phase.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
+
+from torch.autograd import _profiler_enabled
+
+LOG_SIZE = 1 << 16  # entries the span log keeps; older ones are dropped
 
 
 @dataclass
@@ -31,12 +41,8 @@ class KernelCounters:
 
     def report(self) -> dict:
         return {
-            name: {
-                "ops": self.ops[name],
-                "seconds": round(self.seconds[name], 4),
-                "ops_per_s": round(self.ops[name] / self.seconds[name])
-                if self.seconds[name] > 0 else None,
-            }
+            name: {"ops": self.ops[name],
+                   "seconds": round(self.seconds[name], 4)}
             for name in sorted(self.ops)
         }
 
@@ -50,13 +56,86 @@ class KernelCounters:
 counters = KernelCounters()
 
 
-@contextlib.contextmanager
-def profile_region(name: str, n_ops: int = 0, counter: KernelCounters = None):
-    """Annotate a region for torch.profiler and accumulate ops/s counters."""
-    import torch.profiler as _prof
+class _Off:
+    """The span handed out while nothing records: enters and exits."""
 
-    ann = _prof.record_function(name)
-    t0 = time.time()
-    with ann:
-        yield
-    (counter or counters).add(name, n_ops, time.time() - t0)
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("log", "name", "start")
+
+    def __init__(self, log: "SpanLog", name: str):
+        self.log, self.name = log, name
+
+    def __enter__(self):
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.log.record(self.name, self.start, time.perf_counter())
+        return False
+
+
+class SpanLog:
+    """The last `size` spans, oldest first (in the order they ended), each
+    (name, phase, start, end) in seconds of `time.perf_counter`."""
+
+    def __init__(self, size: int = LOG_SIZE):
+        self.entries: deque = deque(maxlen=size)
+        self.lost = 0  # entries dropped at the bound
+        self.phase: str | None = None  # the prover phase running now
+        self.forced = 0  # open `recording()` blocks
+
+    def on(self) -> bool:
+        """Whether spans record now: inside `recording()`, or while a
+        `torch.profiler` session runs on this thread."""
+        return self.forced > 0 or _profiler_enabled()
+
+    def span(self, name: str):
+        """A context manager recording `name` around its block when `on`."""
+        if not self.forced and not _profiler_enabled():
+            return _OFF
+        return _Span(self, name)
+
+    def record(self, name: str, start: float, end: float) -> None:
+        """Append one entry, in the running phase."""
+        if len(self.entries) == self.entries.maxlen:
+            self.lost += 1
+        self.entries.append((name, self.phase, start, end))
+
+    def spans(self, t0: float = float("-inf"),
+              t1: float = float("inf")) -> list[tuple]:
+        """The entries that started at or after t0 and ended by t1."""
+        return [e for e in self.entries if e[2] >= t0 and e[3] <= t1]
+
+    @contextlib.contextmanager
+    def recording(self):
+        """Record every span inside the block, with no profiler running."""
+        self.forced += 1
+        try:
+            yield self
+        finally:
+            self.forced -= 1
+
+    def clear(self) -> None:
+        self.entries.clear()
+        self.lost = 0
+
+
+log = SpanLog()
+span = log.span
+spans = log.spans
+recording = log.recording
+
+
+def dropped() -> int:
+    """Entries the process's span log has dropped at its bound."""
+    return log.lost
