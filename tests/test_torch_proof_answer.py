@@ -49,4 +49,7 @@ def test_answer_proof_bytes_equal_jax():
                                             "encode")} <= names
     lookup = "prover.lookup permute+commit"
     assert {(f"lookup.{w}", lookup) for w in (
-        "compress", "fetch", "permute", "upload", "multiplicity")} <= names
+        "compress", "permute", "upload", "multiplicity")} <= names
+    # the permutation and the counts are ranked on the device: the
+    # compressed columns are not fetched to the host
+    assert ("lookup.fetch", lookup) not in names

@@ -88,8 +88,8 @@ def test_every_leaf_lies_inside_its_phase(recorded):
     phases = {e[0]: e for e in entries if e[0].startswith("prover.")}
     leaves = [e for e in entries if not e[0].startswith("prover.")]
     assert {e[0] for e in leaves} >= {"ntt", "msm", "lookup.compress",
-                                      "lookup.fetch", "lookup.permute",
-                                      "lookup.upload", "grand.products",
+                                      "lookup.permute", "lookup.upload",
+                                      "grand.products",
                                       "quotient.eval", "open.evaluate",
                                       "open.fold", "ipa.round", "ipa.decode",
                                       "ipa.lincomb", "ipa.powers"}

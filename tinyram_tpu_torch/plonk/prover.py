@@ -56,14 +56,12 @@ from __future__ import annotations
 
 import secrets
 import time
-from collections import Counter
 
-import numpy as np
 import torch
 
 from .. import kernels
 from ..field.field import FP
-from ..field.params import N_LIMBS, limb_array_to_ints, limbs_to_int
+from ..field.params import N_LIMBS
 from ..ipa import SRS
 from ..ipa.ipa import COMMIT_CHUNK, commit, commit_many, open_poly
 from ..poly.ntt import _mont_table, eval_poly_rows, tree_sum
@@ -74,6 +72,7 @@ from ..utils.profiling import counters, log as span_log, span
 from .circuit import Assignment, pinned
 from .expr import batched_evaluate, queried_vars
 from .keygen import ProvingKey, delta
+from .lookup_rank import logup_counts, plookup_sources
 from .protocol import eval_schedule, multiopen_point_order
 
 P = FP.modulus
@@ -625,60 +624,6 @@ def quotient_coeff(cs, dom, coeff: dict, challenges: tuple, u: int,
         return dom.extended_rows_to_coeff(acc)
 
 
-def permute_lookup(a_vals: list[int], s_vals: list[int]):
-    """halo2-0.2-style permuted (A', S') for the plookup product argument."""
-    n = len(a_vals)
-    a_sorted = sorted(a_vals)
-    s_count = Counter(s_vals)
-    s_prime: list[int | None] = [None] * n
-    for i, v in enumerate(a_sorted):
-        if i == 0 or v != a_sorted[i - 1]:
-            if s_count[v] == 0:
-                raise ValueError(f"lookup input {v} not present in table")
-            s_count[v] -= 1
-            s_prime[i] = v
-    leftovers = iter(s_count.elements())
-    for i in range(n):
-        if s_prime[i] is None:
-            s_prime[i] = next(leftovers)
-    return a_sorted, [int(v) for v in s_prime]
-
-
-def _limbs_to_i64(host: np.ndarray):
-    """(16, N) plain-form host limbs -> int64 array, or None if too large."""
-    if host[4:].any() or (host[3] >> 14).any():
-        return None
-    out = host[0].astype(np.int64)
-    for i in range(1, 4):
-        out |= host[i].astype(np.int64) << (16 * i)
-    return out
-
-
-def permute_lookup_np(a_vals: np.ndarray, s_vals: np.ndarray):
-    """Vectorized permute for int64 values; same rule as permute_lookup."""
-    n = len(a_vals)
-    a_sorted = np.sort(a_vals)
-    first = np.ones(n, dtype=bool)
-    first[1:] = a_sorted[1:] != a_sorted[:-1]
-    needed = a_sorted[first]
-    s_sorted = np.sort(s_vals)
-    idx = np.searchsorted(s_sorted, needed, side="left")
-    ok = (idx < n) & (s_sorted[np.minimum(idx, n - 1)] == needed)
-    if not ok.all():
-        missing = needed[~ok][0]
-        raise ValueError(f"lookup input {missing} not present in table")
-    consumed = np.zeros(n, dtype=bool)
-    consumed[idx] = True
-    s_prime = np.empty(n, dtype=np.int64)
-    s_prime[first] = needed
-    s_prime[~first] = s_sorted[~consumed]
-    return a_sorted, s_prime
-
-
-def _host_limbs(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy().astype(np.int64)
-
-
 # -------------------------------------------------------------------- prover
 
 
@@ -865,45 +810,30 @@ def _prove(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
             pairs_plain = FP.from_mont(all_pairs[:, :, :u].contiguous())
             del all_pairs
     if lookup_data:
-        with span("lookup.fetch"):
-            host_pairs = _host_limbs(pairs_plain)
+        # permute over the usable prefix only; the blinding tail is random.
+        # The order is decided on the device (`lookup_rank`): A' and S' are
+        # gathered from the Montgomery columns held there
+        with span("lookup.permute"):
+            srcs = plookup_sources(pairs_plain)
         del pairs_plain
+        counters.add("lookup.permute.card", len(lookup_data), 0.0)
     for li, (a_lag, s_lag) in enumerate(lookup_data):
         with span("lookup.permute"):
-            # permute over the usable prefix only; the blinding tail is
-            # random.  Values under 2^62 permute as int64 and are encoded
-            # on the device; larger ones as Python ints, encoded here.
-            ha = host_pairs[:, 2 * li]
-            hs = host_pairs[:, 2 * li + 1]
-            a64 = _limbs_to_i64(ha)
-            s64 = _limbs_to_i64(hs)
-            as_i64 = a64 is not None and s64 is not None
-            if as_i64:
-                ap_host, sp_host = permute_lookup_np(a64, s64)
-            else:
-                ap_ints, sp_ints = permute_lookup(limb_array_to_ints(ha),
-                                                  limb_array_to_ints(hs))
-                ap_host = _mont_table(FP, ap_ints)
-                sp_host = _mont_table(FP, sp_ints)
             tail_vals = _rand_tail(2 * (n - u))
             ap_tail = _mont_table(FP, tail_vals[: n - u])
             sp_tail = _mont_table(FP, tail_vals[n - u:])
         with span("lookup.upload"):
-            if as_i64:
-                ap_body = FP.encode(ap_host, device=dev)
-                sp_body = FP.encode(sp_host, device=dev)
-            else:
-                ap_body = torch.as_tensor(ap_host, device=dev)
-                sp_body = torch.as_tensor(sp_host, device=dev)
-            ap_lag = torch.cat([ap_body, torch.as_tensor(ap_tail, device=dev)],
+            both = torch.cat([a_lag[:, :u], s_lag[:, :u]],
+                             dim=1)[:, srcs[li].reshape(-1)]
+            ap_lag = torch.cat([both[:, :u], torch.as_tensor(ap_tail, device=dev)],
                                dim=1)
-            sp_lag = torch.cat([sp_body, torch.as_tensor(sp_tail, device=dev)],
+            sp_lag = torch.cat([both[:, u:], torch.as_tensor(sp_tail, device=dev)],
                                dim=1)
         lag[("la", li)] = ap_lag
         lag[("ls", li)] = sp_lag
         permuted += [("la", li), ("ls", li)]
     if lookup_data:  # the last lookup's temporaries (columns of n)
-        del a_lag, s_lag, ap_body, sp_body, ap_lag, sp_lag
+        del a_lag, s_lag, srcs, both, ap_lag, sp_lag
     if permuted:
         perm_coeff = _l2c_chunked(dom, lag, permuted, ext_chunk)
         perm_comms = cm(
@@ -939,49 +869,27 @@ def _prove(srs, pk, asg, tw, rng, ext_chunk, gate_slab, commit_chunk,
                 dim=1)
             cols_plain = FP.from_mont(all_cols[:, :, :u].contiguous())
             del all_cols
-        with span("lookup.fetch"):
-            host_cols = _host_limbs(cols_plain)
-        del cols_plain
         m_lags = []
         off = 0
         for rl, (in_stack, t_lag) in zip(cs.range_lookups, rl_stacks):
             with span("lookup.multiplicity"):
                 nin = in_stack.shape[1]
-                h_in = host_cols[:, off : off + nin]
-                h_t = host_cols[:, off + nin]
+                in_plain = cols_plain[:, off : off + nin]
+                t_plain = cols_plain[:, off + nin]
                 off += nin + 1
-                cols64 = [_limbs_to_i64(h_in[:, j]) for j in range(nin)]
-                t64 = _limbs_to_i64(h_t)
-                if t64 is None or any(c is None for c in cols64):
-                    t64 = np.array(
-                        [limbs_to_int(h_t[:, i]) for i in range(u)],
-                        dtype=object)
-                    cols64 = [
-                        np.array([limbs_to_int(h_in[:, j, i])
-                                  for i in range(u)], dtype=object)
-                        for j in range(nin)
-                    ]
-                invals = np.concatenate(cols64)
-                order = np.argsort(t64, kind="stable")
-                sorted_t = t64[order]
-                idx = np.searchsorted(sorted_t, invals, side="left")
-                ok = (idx < u) & (sorted_t[np.minimum(idx, u - 1)] == invals)
-                if not ok.all():
-                    missing = invals[~ok][0]
-                    raise ValueError(
-                        f"range_lookup {rl.name}: input {missing} not in table"
-                    )
-                counts_sorted = np.bincount(idx, minlength=u)
-                m_arr = np.zeros(n, dtype=np.int64)
-                m_arr[order] = counts_sorted[:u]
+                m_plain = logup_counts(in_plain, t_plain, rl.name)
             with span("lookup.upload"):
-                m_lag = FP.encode(m_arr, device=dev)
+                m_lag = torch.zeros((N_LIMBS, n), dtype=m_plain.dtype,
+                                    device=dev)
+                m_lag[:, :u] = m_plain
                 if bf > 0:
-                    m_lag = m_lag.clone()
-                    m_lag[:, u:] = FP.encode(_rand_tail(n - u), device=dev)
+                    m_lag[:, u:] = FP.encode(_rand_tail(n - u), to_mont=False,
+                                             device=dev)
+                m_lag = FP.to_mont(m_lag)
             m_lags.append(m_lag)
             range_data.append((in_stack, t_lag, m_lag))
-        del rl_stacks, host_cols
+        counters.add("lookup.multiplicity.card", len(cs.range_lookups), 0.0)
+        del rl_stacks, cols_plain, in_plain, t_plain, m_plain
         with span("ntt"):
             m_coeff = dom.lagrange_to_coeff_rows(
                 dom.block(torch.stack(m_lags, dim=1)))

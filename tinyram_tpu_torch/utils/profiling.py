@@ -15,7 +15,9 @@ names for MockProver errors).  Here:
     prover files its phases here as "prover.<phase>" (kernel launches,
     seconds); the mesh's collectives count here too ("mesh.<kind>": the
     field elements a rank sent, `shard/mesh.py`), and the prover files
-    them per phase.
+    them per phase.  The prover counts the lookups whose order it
+    decided on the device ("lookup.permute.card": plookups;
+    "lookup.multiplicity.card": LogUp arguments), `plonk/lookup_rank.py`.
 """
 
 from __future__ import annotations
