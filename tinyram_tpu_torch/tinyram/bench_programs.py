@@ -1,7 +1,12 @@
 """BASELINE.md benchmark programs (configs 2-3).
 
 Config 2: arithmetic/bitwise mix, ~2^12 steps, W = 24 (k = 14).
-Config 3: full ISA incl. load/store + shifts, ~2^16 steps, W = 32 (k = 18).
+Config 3: full ISA incl. load/store + shifts, ~2^16 steps, at either word:
+W = 24 (k = 17; the benchmark's `benchmark/configs/config3.json`, its cells
+`config3-prove` and `config3-short`) or its stated W = 32 (k = 18, which
+the 2^16-row range and program tables force; `config3w32.json`, the cell
+`config3w32-prove`).  The benchmark draws its immediates per program
+(`benchmark/programs.py`); the programs here fix them.
 
 Programs are small loops (the prog table caps program LENGTH at 2^(W/2)
 lines; trace length is bounded by the row count — decoupled from the word

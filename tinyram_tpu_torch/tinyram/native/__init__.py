@@ -6,7 +6,9 @@ It is compiled with `g++` on first use into
 library per content hash of the source) and loaded with ctypes.  A failed
 build raises: nothing switches to the Python emulator behind the caller's
 back.  `eval_program_native` returns the same columnar `Trace` as the
-Python `eval_program`, step for step.
+Python `eval_program`, step for step, at word sizes up to MAX_WORD_BITS
+(32, where a product of two words still fits 64 bits); it raises
+ValueError above.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(_HERE))
 LIB_NAME = "libtinyram_emulator.so"
 FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
 
+MAX_WORD_BITS = 32  # above it a product of two words overflows 64 bits
 _LIB = None
 
 
@@ -111,6 +114,9 @@ def eval_program_native(
     aux_tape=(),
     max_steps: int = 1 << 22,
 ) -> Trace:
+    if not 0 < word_bits <= MAX_WORD_BITS:
+        raise ValueError(f"native emulator: word_bits={word_bits} is outside "
+                         f"1..{MAX_WORD_BITS}, where its products are exact")
     lib = library()
     L = len(prog)
     # the same immediate-vs-word-size check as `eval_program`: the C++ core

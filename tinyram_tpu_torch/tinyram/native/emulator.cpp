@@ -123,8 +123,13 @@ long tinyram_run(const Instr* prog, long prog_len, const uint64_t* tape,
         regs[in.ri] = r & mask;
         flag = (r >> word_bits) == 0;
         break;
+      // The products below are exact for word_bits <= 32, the most that
+      // eval_program_native accepts: both operands are below 2^W, so the
+      // unsigned product is below 2^(2W) <= 2^64; the signed operands lie
+      // in [-2^(W-1), 2^(W-1)), so |f| <= 2^(2W-2) <= 2^62 fits an int64,
+      // and >> of a negative f shifts arithmetically (C++20; g++ always).
       case MULL:
-        r = regs[in.rj] * a;  // word_bits <= 24 keeps this exact in u64
+        r = regs[in.rj] * a;
         regs[in.ri] = r & mask;
         flag = r <= mask;
         break;
